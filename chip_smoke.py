@@ -2,20 +2,42 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
 Drives the port's main path, the order-4 Gamma4 Monte-Carlo evaluation,
-on the card and checks it.  Phases, one output line or more each:
+and its row-access probe path on the card and checks them.  Phases, one
+output line or more each:
 
 1. the card's name and power limit (nvidia-smi);
-2. the build of the CUDA kernel from ``feynmandiagram_tpu_torch/csrc``;
+2. the build of both CUDA libraries from ``feynmandiagram_tpu_torch/csrc``,
+   one nvcc each, started together;
 3. the kernel against its plain PyTorch version on the card, on random
    buckets (n_op 1-4, float32 and float64, Kahan on and off) and on every
    bucket of the order-4 fused and bucketed lowerings at batch 256;
 4. the slice: order-4 Gamma4 -> optimize -> ``compile_evaluator`` on cuda in
    float32 for sum_mode 'fused' and 'bucketed', against the port's plain
    path in float64 on the card, with the kernel's launch count per pass;
-5. per-pass device and wall times of the kernel and of the plain version,
-   Monte-Carlo samples/s of both slices and the device's idle share.
+5. per-pass device and wall times of the kernel and of the plain version
+   (device time: CUDA events around launches queued behind a sleep
+   kernel), the fused pass's device time in bins of the launch's bytes,
+   Monte-Carlo samples/s of both slices and the device's idle share (the
+   profiler's busy time);
+6. the bucket kernel's storage x accumulation pairs: kernel against plain
+   for float32/float64 and bfloat16/float32 on random buckets and on every
+   order-4 fused bucket, and against the float64 sum rounded once to
+   storage; the order-4 fused slice through
+   ``compile_evaluator(acc_dtype=float64)`` against the float64 plain path
+   and against the float32/float64 plain path, its per-pass device times;
+   the order-2 bfloat16/float32 graph phase against float64 at
+   tests/test_lowering.py's bounds and against the bfloat16/float32 plain
+   path.  Each bound that tells the accumulation type is shown to reject a
+   control, the plain version accumulating in the storage type;
+7. each of the nine row-access probe kernels against its plain version, on
+   the JAX script's data and on random data;
+8. the probe path: ``benchmarks.probe_mosaic_caps.main()`` with every probe
+   count at 0 before it, its output against the JAX script's values;
+9. ``benchmarks.probe_gather.run()``: the streaming roofline and the
+   gather strategies at the JAX script's shapes, the bucket kernel among
+   them.
 
-Then one JSON line on the kernels, and the last line
+Then one JSON line on the ten kernels, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, and so
 does a machine without CUDA: nothing runs on the CPU instead.  jax is
 blocked from import; the port reaches only the jax-free host modules of
@@ -23,9 +45,9 @@ blocked from import; the port reaches only the jax-free host modules of
 """
 import json
 import os
-import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 SEED = 0
 BATCH = 4096
@@ -33,6 +55,25 @@ CHECK_BATCH = 256
 BETA, KF, LAM = 0.5, 1.919, 1.0
 RTOL = {"float32": 1e-5, "float64": 1e-12}
 SLICE_TOL = 1e-5   # max|f32 kernel - f64 plain| / max|f64 plain|, per root
+# one ulp of a storage type relative to the value, at the bottom of a binade:
+# a sum rounded once to storage may land one ulp apart in kernel and plain
+STORE_ULP = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -7}
+STORE_BITS = {"float32": 23, "bfloat16": 7}   # stored mantissa bits
+# a wider accumulation against the plain path of the same storage and
+# accumulation: one storage ulp of each root's scale (f32, bf16).  The same
+# path accumulating in the storage type lies outside it (the controls)
+PAIR_SLICE_TOL = 2.0 ** -23
+PAIR_GRAPH_TOL = 2.0 ** -8
+TF32_REL = 2.0 ** -11   # one-hot probe: one term of w rounded to TF32
+TRACE_TRIES = 5         # profiler traces taken before one without device time fails
+QUEUED_REPS = 5         # timed repeats of queued_ms, of which the median counts
+QUEUED_BUCKETS = 16     # buckets timed in one queued_ms call
+# the JAX script's first two output values of each probe (on its data)
+PROBE_FIRST = {"dma8": [704, 705], "dmagrp": [192, 193], "vmemrow": [704, 705],
+               "vmem8": [704, 705], "acc": [2432, 2436], "onehot": [704, 705],
+               "dynwrite": [0, 0], "dmadyn_dst": [632, 633], "take": [536, 537]}
+PROBE_LINE = {"dma8": 39, "dmagrp": 61, "vmemrow": 82, "vmem8": 100, "acc": 122,
+              "onehot": 143, "dynwrite": 162, "dmadyn_dst": 185, "take": 205}
 
 
 def fail(msg: str) -> None:
@@ -51,7 +92,10 @@ def main() -> None:
     from feynmandiagram_tpu_torch import _host as h
     from feynmandiagram_tpu_torch.backends import compile_evaluator
     from feynmandiagram_tpu_torch.mc import mc_run, mc_samples_per_s
-    from feynmandiagram_tpu_torch.ops import kernels
+    from feynmandiagram_tpu_torch.backends.compile import leafmap_of
+    from feynmandiagram_tpu_torch.benchmarks import card_name, probe_gather
+    from feynmandiagram_tpu_torch.benchmarks import probe_mosaic_caps as pm
+    from feynmandiagram_tpu_torch.ops import build, kernels
     from feynmandiagram_tpu_torch.ops.evaluator import make_evaluator
     from feynmandiagram_tpu_torch.ops.leaf_eval import make_leaf_evaluator
 
@@ -61,30 +105,37 @@ def main() -> None:
     kernel_fn, plain_fn = kernels.bucket_gather_reduce, kernels.bucket_gather_reduce_plain
 
     # -- 1. card
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip()
+    smi = card_name()
     print(f"card: {smi}", flush=True)
 
-    # -- 2. build
+    # -- 2. build, one nvcc per source, started together
     t0 = time.perf_counter()
-    kernels.build()
-    print(f"build: bucket_gather_reduce built in {time.perf_counter() - t0:.2f} s", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(build.build, ("bucket_gather_reduce", "row_probes")))
+    print(f"build: bucket_gather_reduce and row_probes built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # -- 3. kernel against plain version
-    def check_bucket(w, idx, fac, start, compensated, label):
+    def type_name(dtype):
+        return str(dtype).split(".")[1]
+
+    def check_bucket(w, idx, fac, start, compensated, label, acc_dtype=None):
         """Run kernel and plain version on copies of w; return max|diff|.
-        Bound: |diff| <= rtol * sum_a |fac * prod_k w| (the terms' size)."""
+        Bound: |diff| <= rtol * sum_a |fac * prod_k w| (the terms' size), rtol
+        of the accumulation type, plus one storage ulp of the terms' size
+        where the sum is rounded to a narrower storage type."""
         count = idx.shape[2]
         wk, wp = w.clone(), w.clone()
-        kernel_fn(wk, idx, fac, start, compensated=compensated)
-        plain_fn(wp, idx, fac, start, compensated=compensated)
+        kernel_fn(wk, idx, fac, start, compensated=compensated, acc_dtype=acc_dtype)
+        plain_fn(wp, idx, fac, start, compensated=compensated, acc_dtype=acc_dtype)
         wm = w.abs().double()
         plain_fn(wm, idx, fac.abs().double(), start)
         torch.cuda.synchronize()
         rows = slice(start, start + count)
         diff = (wk[rows].double() - wp[rows].double()).abs()
-        bound = RTOL[str(w.dtype).split(".")[1]] * wm[rows]
+        bound = RTOL[type_name(acc_dtype or w.dtype)] * wm[rows]
+        if acc_dtype not in (None, w.dtype):
+            bound = bound + STORE_ULP[type_name(w.dtype)] * wm[rows]
         if not torch.isfinite(wk[rows]).all() or bool((diff > bound).any()):
             fail(f"kernel != plain on {label}: max|diff| {diff.max().item():.3e}")
         if not torch.equal(wk[:start], w[:start]) or not torch.equal(wk[start + count:],
@@ -94,11 +145,11 @@ def main() -> None:
 
     gen = np.random.default_rng(SEED)
 
-    def rand_case(S, B, A, C, n_op, dtype):
+    def rand_case(S, B, A, C, n_op, dtype, fac_dtype=None):
         w = torch.as_tensor(gen.uniform(0.5, 1.5, (S + C, B)), dtype=dtype, device=dev)
         idx = torch.as_tensor(gen.integers(0, S, (n_op, A, C)), dtype=torch.int32, device=dev)
-        fac = torch.as_tensor(gen.choice([1.0, -1.0, 0.5, -2.0], (A, C)), dtype=dtype,
-                              device=dev)
+        fac = torch.as_tensor(gen.choice([1.0, -1.0, 0.5, -2.0], (A, C)),
+                              dtype=fac_dtype or dtype, device=dev)
         return w, idx, fac, S
 
     err = check_bucket(*rand_case(16, 128, 2, 8, 1, torch.float32), False,
@@ -202,20 +253,94 @@ def main() -> None:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / n
 
-    def device_ms(fn, n=5):
-        """Device time per call of fn: the kernels' own time, summed by the
-        profiler over n calls."""
+    def queued_ms(fn, n=1):
+        """Device time per call of fn with the host out of the way: n calls
+        are enqueued between two CUDA events behind a sleep kernel, which is
+        lengthened until the first event is still pending when the host is
+        done, so that the device never waits for the host.  The time counts
+        the device's gaps between launches.  Median of QUEUED_REPS; fn must
+        not wait for the device.  Kernel times are not taken from the
+        profiler here: late in this script its traces on the card lost a
+        pass's first kernel and, once, halved every kernel's duration."""
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cycles, times = 10 ** 7, []
+        while len(times) < QUEUED_REPS:
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            e0.record()
             for _ in range(n):
                 fn()
+            e1.record()
+            starved = e0.query()
             torch.cuda.synchronize()
-        total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-                    if str(e.device_type).endswith("CUDA"))
-        if total <= 0:
-            fail("the profiler saw no device time")
-        return total / n / 1e3
+            if not starved:
+                times.append(e0.elapsed_time(e1) / n)
+            elif cycles < 2 ** 32:
+                cycles *= 2
+            else:
+                fail("the host did not enqueue a timed call within a sleep of 2^32 cycles")
+        return float(np.median(times))
+
+    def buckets_ms(op, w, bl, **kw):
+        """Device time of op over the buckets bl: queued_ms of runs of
+        QUEUED_BUCKETS buckets, summed.  A run's launches fit the queue that
+        the host can fill while the device sleeps; a whole plain pass, up to
+        ten launches a bucket, does not."""
+        return sum(queued_ms(lambda: [op(w, i, f, s, **kw) for i, f, s in
+                                      bl[k:k + QUEUED_BUCKETS]])
+                   for k in range(0, len(bl), QUEUED_BUCKETS))
+
+    def busy_ms(fn, n=10):
+        """The profiler's device busy time per call of fn, for calls that
+        wait for the device or copy from the host (the Monte-Carlo pass, the
+        probes' plain versions): its kernels' own time summed over n calls,
+        after one untraced call.  The host idles 10 ms at each end of the
+        trace (without that the profiler on the card dropped the first
+        kernels of short traces); a trace without device time is taken
+        again, up to TRACE_TRIES times."""
+        for _ in range(TRACE_TRIES):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(0.01)
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(0.01)
+            total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                        if str(e.device_type).endswith("CUDA"))
+            if total > 0:
+                return total / n / 1e3
+        fail(f"the profiler saw no device time in {TRACE_TRIES} traces")
+
+    def launch_sizes(low, w, bl):
+        """Device time of the fused pass's bucket launches by the launch's
+        bytes: the launches of each bin, in pass order, timed by queued_ms
+        (with the gaps between them).  Requested bytes: every gathered row,
+        padding operands included, and every written row; real: gathered
+        rows other than the constant-one row that pads operands and terms."""
+        ones = [s for s, v in zip(np.asarray(low.const_slots), np.asarray(low.const_values))
+                if v == 1.0]
+        row = BATCH * 4
+        bins = {"< 2 MiB": [[], 0, 0], "2-16 MiB": [[], 0, 0], ">= 16 MiB": [[], 0, 0]}
+        for (idx, _, _), launch in zip(buckets_of(low), bl):
+            n_op, arity, count = np.shape(idx)
+            req = (n_op * arity + 1) * count * row
+            real = (int(np.isin(idx, ones, invert=True).sum()) + count) * row
+            key = "< 2 MiB" if req < 2 ** 21 else "2-16 MiB" if req < 2 ** 24 else ">= 16 MiB"
+            bins[key] = [bins[key][0] + [launch], bins[key][1] + req, bins[key][2] + real]
+        pass_us = 1e3 * buckets_ms(kernel_fn, w, bl)
+        parts = []
+        for key, (ops, req, real) in bins.items():
+            if ops:
+                t = 1e3 * queued_ms(lambda: [kernel_fn(w, i, f, s) for i, f, s in ops])
+                parts.append(f"{key}: {len(ops)} launches, {t:.1f} us ({t / pass_us:.3f} of "
+                             f"the pass, {t / len(ops):.2f} us each), real "
+                             f"{real / t / 1e3:.1f} GB/s, requested {req / t / 1e3:.1f} GB/s")
+        print(f"launches: fused batch {BATCH} f32, {len(bl)} bucket launches back to back, "
+              f"{pass_us:.1f} us of device time; by requested bytes: " + "; ".join(parts)
+              + f"  [{smi}]", flush=True)
 
     def in_turns(measure, k_fn, p_fn):
         """Kernel and plain in turns (plain, kernel, kernel, plain)."""
@@ -234,14 +359,16 @@ def main() -> None:
         def all_buckets(op):
             return lambda: [op(w, i, f, s) for i, f, s in bl]
 
-        kd, pd = in_turns(device_ms, all_buckets(kernel_fn), all_buckets(plain_fn))
+        kd, pd = in_turns(lambda op: buckets_ms(op, w, bl), kernel_fn, plain_fn)
         kb, pb = in_turns(wall_ms, all_buckets(kernel_fn), all_buckets(plain_fn))
         times[mode] = (kd, pd)
+        if mode == "fused":
+            launch_sizes(c.lowered, w, bl)
         plain_graph = make_evaluator(c.lowered, device=dev, dtype=torch.float32, kernel=False)
         leaves = c.leaf_fn(varK, varT)
         kg, pg = in_turns(wall_ms, lambda: c.graph_fn(leaves), lambda: plain_graph(leaves))
-        print(f"time: {mode} batch {BATCH} f32, all {len(bl)} buckets of a pass: device "
-              f"kernel {kd:.4f} ms vs plain {pd:.4f} ms; wall kernel {kb:.4f} ms vs plain "
+        print(f"time: {mode} batch {BATCH} f32, all {len(bl)} buckets of a pass: device, "
+              f"back to back, kernel {kd:.4f} ms vs plain {pd:.4f} ms; wall kernel {kb:.4f} ms vs plain "
               f"{pb:.4f} ms; graph phase wall kernel {kg:.4f} ms vs plain {pg:.4f} ms  "
               f"[{smi}]", flush=True)
         for batch in (BATCH, 2 * BATCH):
@@ -251,18 +378,233 @@ def main() -> None:
             def one():
                 mc_run(c.fn, iters=1, seed=SEED, **mc_kw)
 
-            busy, wall = device_ms(one, n=10), wall_ms(one, n=20)
+            busy, wall = busy_ms(one), wall_ms(one, n=20)
             sps = mc_samples_per_s(c.fn, iters=100, reps=3, **mc_kw)
             print(f"mc: {mode} batch {batch} f32: {sps:.1f} samples/s; per pass wall "
                   f"{wall:.4f} ms, device busy {busy:.4f} ms (idle share "
                   f"{max(0.0, 1 - busy / wall):.3f})  [{smi}]", flush=True)
 
+    # -- 6. storage x accumulation pairs of the bucket kernel
+    def rounding_excess(got, exact, size, storage, acc):
+        """max |got - exact| / (half a storage ulp of the value + RTOL[acc] *
+        the terms' size): at most 1 where got is the exact sum, accumulated
+        to acc's accuracy and rounded once to the storage type."""
+        mag = torch.maximum(got.abs(), exact.abs())
+        ulp = torch.exp2((torch.frexp(mag).exponent - 1 - STORE_BITS[storage]).double())
+        return ((got - exact).abs() / (0.5 * ulp + RTOL[acc] * size)).max().item()
+
+    def check_pair(w, idx, fac, start, compensated, label, acc):
+        """check_bucket, then the kernel against the float64 sum rounded once
+        to storage; returns max|diff|, the kernel's rounding excess, and the
+        excess of the control: the plain version accumulating in storage."""
+        err = check_bucket(w, idx, fac, start, compensated, label, acc_dtype=acc)
+        rows = slice(start, start + idx.shape[2])
+        wk, wc, we, wm = w.clone(), w.clone(), w.double(), w.abs().double()
+        kernel_fn(wk, idx, fac, start, compensated=compensated, acc_dtype=acc)
+        plain_fn(wc, idx, fac, start, compensated=compensated)
+        plain_fn(we, idx, fac.double(), start)
+        plain_fn(wm, idx, fac.abs().double(), start)
+        args = (we[rows], wm[rows], type_name(w.dtype), type_name(acc))
+        excess = rounding_excess(wk[rows].double(), *args)
+        if not excess <= 1.0:
+            fail(f"kernel on {label} is not its sum rounded once: excess {excess:.3f}")
+        return err, excess, rounding_excess(wc[rows].double(), *args)
+
+    pairs = ((torch.float32, torch.float64), (torch.bfloat16, torch.float32))
+    for storage, acc in pairs:
+        tag = f"{type_name(storage)}/{type_name(acc)}"
+        low = compiled["fused"].lowered
+        w = torch.as_tensor(gen.uniform(0.5, 1.5, (low.num_slots, CHECK_BATCH)),
+                            dtype=storage, device=dev)
+        cases = [(rand_case(64, 300, 16, 40, n_op, storage, acc), comp,
+                  f"random n_op={n_op} {tag} compensated={comp}")
+                 for n_op in (1, 2, 3, 4) for comp in (False, True)]
+        cases += [((w, torch.as_tensor(np.ascontiguousarray(idx, np.int32), device=dev),
+                    torch.as_tensor(np.ascontiguousarray(fac), device=dev).to(acc), start),
+                   comp, f"order-4 fused bucket at row {start} {tag} compensated={comp}")
+                  for comp in (False, True) for idx, fac, start in buckets_of(low)]
+        res = [check_pair(*args, comp, label, acc) for args, comp, label in cases]
+        err, excess, control = (max(r[i] for r in res) for i in range(3))
+        print(f"kernel: {tag} on random n_op 1-4 and every order-4 fused bucket at batch "
+              f"{CHECK_BATCH}, Kahan off and on ({len(cases)} cases): max|diff| vs plain "
+              f"{err:.3e}; rounded-once excess kernel {excess:.6f} (limit 1), control "
+              f"(plain accumulating in {type_name(storage)}) {control:.1f}", flush=True)
+        if not control > 1.0:
+            fail(f"{tag}: the control passed the rounded-once bound, which therefore "
+                 f"cannot tell the accumulation types apart")
+
+    def per_root(a, b):
+        """Worst per-root max|a - b| / max|b|."""
+        d = (a.double() - b.double()).abs().max(dim=1).values
+        return (d / b.double().abs().max(dim=1).values).max().item()
+
+    t0 = time.perf_counter()
+    c64 = compile_evaluator(roots, max_loop_num=para.totalLoopNum, beta=BETA, kF=KF,
+                            lam=LAM, device=dev, dtype=torch.float32,
+                            acc_dtype=torch.float64, sum_mode="fused")
+    ref = make_evaluator(c64.lowered, device=dev, dtype=torch.float64, kernel=False)(
+        make_leaf_evaluator(c64.tables, beta=BETA, kF=KF, lam=LAM, device=dev,
+                            dtype=torch.float64)(varK, varT))
+    kernel_fn.launches = 0
+    got = c64(varK, varT)
+    torch.cuda.synchronize()
+    n_buckets = len(buckets_of(c64.lowered))
+    if kernel_fn.launches != n_buckets:
+        fail(f"f64-acc slice: kernel launched {kernel_fn.launches} times, expected {n_buckets}")
+    if got.dtype != torch.float64 or got.shape != ref.shape or not torch.isfinite(got).all():
+        fail(f"f64-acc slice: output {got.dtype} {tuple(got.shape)} or not finite")
+    worst = per_root(got, ref)
+    print(f"slice: fused f32 storage / f64 accumulation via compile_evaluator (built in "
+          f"{time.perf_counter() - t0:.1f} s) vs f64 plain, batch {BATCH}: "
+          f"{kernel_fn.launches} kernel launches per pass, worst per-root {worst:.3e} "
+          f"(limit {SLICE_TOL:g})", flush=True)
+    if not worst <= SLICE_TOL:
+        fail(f"f64-acc slice: per-root scale-relative error {worst:.3e} > {SLICE_TOL}")
+    leaves = c64.leaf_fn(varK, varT)
+    same = make_evaluator(c64.lowered, device=dev, dtype=torch.float32,
+                          acc_dtype=torch.float64, kernel=False)(leaves)
+    acc_err = per_root(c64.graph_fn(leaves), same)
+    control = per_root(make_evaluator(c64.lowered, device=dev, dtype=torch.float32,
+                                      kernel=False)(leaves), same)
+    print(f"slice: the same graph phase vs the f32/f64 plain path on the same leaves: worst "
+          f"per-root {acc_err:.3e} (limit {PAIR_SLICE_TOL:.3e}); control (plain f32/f32) "
+          f"{control:.3e}", flush=True)
+    if not acc_err <= PAIR_SLICE_TOL < control:
+        fail("f64-acc slice: kernel outside, or control inside, the f32/f64 plain bound")
+    bl = [(torch.as_tensor(np.ascontiguousarray(i, np.int32), device=dev),
+           torch.as_tensor(np.ascontiguousarray(f), device=dev).double(), s)
+          for i, f, s in buckets_of(c64.lowered)]
+    w = torch.as_tensor(gen.uniform(0.5, 1.5, (c64.lowered.num_slots, BATCH)),
+                        dtype=torch.float32, device=dev)
+
+    kd64, pd64 = in_turns(lambda op: buckets_ms(op, w, bl, acc_dtype=torch.float64),
+                          kernel_fn, plain_fn)
+    print(f"time: fused batch {BATCH} f32 storage / f64 accumulation, all {len(bl)} buckets "
+          f"of a pass: device, back to back, kernel {kd64:.4f} ms vs plain {pd64:.4f} ms (f32/f32 kernel "
+          f"{times['fused'][0]:.4f} ms above)  [{smi}]", flush=True)
+
+    para2 = h.DiagPara(type=h.Ver4Diag, innerLoopNum=2, hasTau=True,
+                       filter=(h.NoHartree,),
+                       interaction=(h.Interaction(h.ChargeCharge, h.Instant),))
+    roots2 = [row["diagram"] for row in h.vertex4(para2)]
+    h.optimize_inplace(roots2, level=1)
+    leafmap2 = leafmap_of(roots2)
+    low2 = h.lower(roots2, leafmap2, sum_mode="bucketed")
+    vals = np.random.default_rng(2).uniform(0.25, 4.0, (len(leafmap2), 16))
+    f64 = make_evaluator(low2, device=dev, dtype=torch.float64, kernel=False)(vals)
+    kernel_fn.launches = 0
+    mixed = make_evaluator(low2, device=dev, dtype=torch.bfloat16,
+                           acc_dtype=torch.float32)(vals.astype(np.float32))
+    torch.cuda.synchronize()
+    denom = torch.maximum(f64.abs(), 1e-3 * f64.abs().max())
+    rel = (mixed.double() - f64).abs() / denom
+    med, top = rel.median().item(), rel.max().item()
+    print(f"graph: order-2 bucketed bf16 storage / f32 accumulation vs f64, batch 16: "
+          f"{kernel_fn.launches} kernel launches, median rel {med:.3e} (limit 1e-2), max "
+          f"{top:.3e} (limit 0.5)", flush=True)
+    if mixed.dtype != torch.float32 or kernel_fn.launches == 0 or not (med < 1e-2 and
+                                                                      top < 0.5):
+        fail("bf16/f32 graph phase outside tests/test_lowering.py's bounds")
+    vals32 = vals.astype(np.float32)
+    same = make_evaluator(low2, device=dev, dtype=torch.bfloat16, acc_dtype=torch.float32,
+                          kernel=False)(vals32)
+    acc_err = per_root(mixed, same)
+    control = per_root(make_evaluator(low2, device=dev, dtype=torch.bfloat16,
+                                      kernel=False)(vals32), same)
+    print(f"graph: the same vs the bf16/f32 plain path: worst per-root {acc_err:.3e} (limit "
+          f"{PAIR_GRAPH_TOL:.3e}); control (plain bf16/bf16) {control:.3e}", flush=True)
+    if not acc_err <= PAIR_GRAPH_TOL < control:
+        fail("bf16/f32 graph phase: kernel outside, or control inside, the bf16/f32 plain "
+             "bound")
+
+    # -- 7. the row-access probe kernels against their plain versions
+    def probe_rand_rows(S):
+        return {"dma8": [(S - 8,), (0,), (S // 3,)], "dmagrp": [(S - 1,), (13,)],
+                "vmemrow": [(300,), (-5,), (-300,), (17,)],
+                "vmem8": [(252,), (-3,), (100,)],
+                "acc": [(-7, 255, 1000, -1000), (17, 256, 1031, 9)],
+                "onehot": [(251,), (-3,), (100,), (2 ** 31 - 1,)],
+                "dynwrite": [(-3,), (17,)],
+                "dmadyn_dst": [(S // 8 - 1, -4), (3, 1), (3, 2), (3, 3)],
+                "take": [(0,)]}
+
+    def rows_t(r):
+        return torch.tensor((tuple(r) + (0, 0, 0))[:4], dtype=torch.int32)
+
+    probe_err = {}
+    w_p, rows_p = pm.probe_inputs(dev)
+    for label, case, plain in pm.CASES:
+        name = case.__name__[len("case_"):]
+        got, ref = case(w_p, rows_p), plain(w_p, rows_p)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref) or got.reshape(-1)[:2].tolist() != PROBE_FIRST[name]:
+            fail(f"probe {name} on the JAX script's data: {got.reshape(-1)[:2].tolist()} "
+                 f"vs plain {ref.reshape(-1)[:2].tolist()}, JAX {PROBE_FIRST[name]}")
+        err, n = 0.0, 0
+        for S, B in ((4096, 512), (1000, 100)):
+            wr = torch.as_tensor(gen.standard_normal((S, B)), dtype=torch.float32, device=dev)
+            for r in probe_rand_rows(S)[name]:
+                got, ref = case(wr, rows_t(r)), plain(wr, rows_t(r))
+                torch.cuda.synchronize()
+                d = (got - ref).abs()
+                bound = TF32_REL * ref.abs() if name == "onehot" else torch.zeros_like(ref)
+                if got.shape != ref.shape or bool((d > bound).any()):
+                    fail(f"probe {name} on random data {S}x{B}, rows {r}: max|diff| "
+                         f"{d.max().item():.3e}")
+                err, n = max(err, d.max().item()), n + 1
+        probe_err[name] = err
+        print(f"probe: {name} kernel = plain on the JAX data and {n} random cases "
+              f"({'within 2^-11 relative, TF32' if name == 'onehot' else 'exact'}), "
+              f"max|diff| {err:.3e}", flush=True)
+    for name, r in (("dma8", (4089,)), ("dmagrp", (4096,)), ("dmadyn_dst", (512,))):
+        try:
+            getattr(pm, f"case_{name}")(w_p, rows_t(r))
+        except ValueError:
+            continue
+        fail(f"probe {name}: an out-of-range source {r} did not raise")
+    print("probe: out-of-range copy sources raise (dma8, dmagrp, dmadyn_dst)", flush=True)
+
+    # -- 8. the probe path, counts from 0
+    for _, case, _ in pm.CASES:
+        case.launches = 0
+    results = pm.main()
+    probe_launches = {case.__name__[len("case_"):]: case.launches for _, case, _ in pm.CASES}
+    for res in results:
+        name = res["case"].__name__[len("case_"):]
+        if not res["ok"] or res["first"] != PROBE_FIRST[name] or probe_launches[name] < 1:
+            fail(f"probe path: {name} ok={res['ok']} first={res.get('first')} "
+                 f"launches={probe_launches[name]}")
+    print(f"probe path: all nine cases OK, launches {probe_launches}", flush=True)
+    # device time alone, beside main()'s per-call event times that include
+    # the host's launch work
+    probe_dev = {}
+    for _, case, plain in pm.CASES:
+        probe_dev[case.__name__[len("case_"):]] = (
+            busy_ms(lambda: case(w_p, rows_p), n=20), busy_ms(lambda: plain(w_p, rows_p), n=20))
+    print("probe device time per call, kernel vs plain: " + ", ".join(
+        f"{name} {k * 1e3:.2f} vs {p * 1e3:.2f} us" for name, (k, p) in probe_dev.items())
+        + f"  [{smi}]", flush=True)
+
+    # -- 9. gather strategies and the streaming roofline
+    kernel_fn.launches = 0
+    gather = probe_gather.run()
+    if not gather["bucket_ok"] or kernel_fn.launches < 1:
+        fail(f"probe_gather: bucket kernel check {gather['bucket_ok']}, "
+             f"{kernel_fn.launches} launches")
+
+    by_name = {res["case"].__name__[len("case_"):]: res for res in results}
     report = {"kernels": [{
         "name": "bucket_gather_reduce", "route": "cuda",
         "source": "feynmandiagram_tpu_torch/csrc/bucket_gather_reduce.cu",
         "replaces": "feynmandiagram_tpu/ops/kernels.py:82",
         "launches": launches["fused"], "max_abs_err": main_err,
-        "ms": times["fused"][0], "plain_ms": times["fused"][1]}]}
+        "ms": times["fused"][0], "plain_ms": times["fused"][1]}] + [{
+            "name": f"probe_{name}", "route": "cuda",
+            "source": "feynmandiagram_tpu_torch/csrc/row_probes.cu",
+            "replaces": f"benchmarks/probe_mosaic_caps.py:{PROBE_LINE[name]}",
+            "launches": probe_launches[name], "max_abs_err": probe_err[name],
+            "ms": by_name[name]["ms"], "plain_ms": by_name[name]["plain_ms"]}
+            for name in PROBE_LINE]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,7 @@ import torch
 
 from .._host import LoweredGraph, lower
 from .dtypes import default_device, default_dtype
-from .kernels import bucket_gather_reduce, bucket_gather_reduce_plain
+from .kernels import bucket_gather_reduce, bucket_gather_reduce_plain, cuda_type_codes
 
 
 @dataclass
@@ -152,14 +152,16 @@ def make_evaluator(lowered: LoweredGraph, *, device=None, dtype=None,
     buffer is returned.  Index and factor tables are checked and uploaded
     to ``device`` once, here.  ``chunk_rows`` only bounds the temporaries of
     the plain bucket version; ``kernel=False`` runs the buckets through that
-    version on any device.
+    version on any device.  ``dtype`` and ``acc_dtype`` are the storage and
+    accumulation types (``torch.bfloat16`` with ``torch.float32`` is the JAX
+    package's half-width buffer); the CUDA kernel takes the pairs of
+    ``kernels.CUDA_DTYPE_PAIRS`` and raises here on any other.
     """
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)
     a = acc_dtype or dtype
-    if kernel and device.type == "cuda" and a != dtype:
-        raise ValueError(f"the CUDA bucket kernel accumulates in the storage dtype "
-                         f"{dtype}; acc_dtype={a} needs kernel=False")
+    if kernel and device.type == "cuda":
+        cuda_type_codes(dtype, a, acc_dtype)
     check_lowered(lowered)
     num_slots = lowered.num_slots
     n_const = len(lowered.const_slots)

@@ -1,4 +1,4 @@
-"""The bucket gather-reduce kernel: wrapper, plain version and build step.
+"""The bucket gather-reduce kernel: wrapper and plain version.
 
 ``bucket_gather_reduce`` computes, in place on the weight buffer ``w``,
 
@@ -11,88 +11,57 @@ and the ``FusedBucket`` primitive of ``sum_mode='fused'`` (``n_op <= 4``).
 On a CUDA tensor the wrapper launches the hand-written CUDA kernel in
 ``csrc/bucket_gather_reduce.cu``; on a CPU tensor it runs the plain PyTorch
 version ``bucket_gather_reduce_plain``.  Nothing falls back: a CUDA build or
-launch failure raises.  The kernel is built at first use with ``nvcc`` into
-``feynmandiagram_tpu_torch/_build/`` and loaded through ctypes.
+launch failure raises.  The kernel is built at first use (``ops/build.py``).
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import tempfile
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from . import build
+
 MAX_N_OP = 4
+STORAGE_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "bucket_gather_reduce.cu")
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_LIB_PATH = os.path.join(_BUILD_DIR, "libbucket_gather_reduce.so")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lib: Optional[ctypes.CDLL] = None
+# (storage dtype, accumulation dtype) pairs the CUDA kernel is instantiated
+# for, and the type codes its C entry point takes
+_TYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+CUDA_DTYPE_PAIRS = ((torch.float32, torch.float32), (torch.float64, torch.float64),
+                    (torch.float32, torch.float64), (torch.bfloat16, torch.float32))
 
 
-def _find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        cand = os.path.join(cuda_home, "bin", "nvcc")
-        if os.path.exists(cand):
-            nvcc = cand
-    if nvcc is None:
-        raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): cannot build "
-                           "the bucket_gather_reduce CUDA kernel")
-    return nvcc
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.fd_bucket_gather_reduce
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def build() -> str:
-    """Compile the kernel into ``_build/`` if the library is missing or
-    older than its source; return the library's path.  The compiler's output
-    (including ``-Xptxas -v`` register counts) goes to ``_build/*.log``."""
-    if os.path.exists(_LIB_PATH) and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC):
-        return _LIB_PATH
-    nvcc = _find_nvcc()
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", tmp, _SRC],
-                              capture_output=True, text=True)
-        with open(_LIB_PATH[:-3] + ".log", "w") as log:
-            log.write(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, _LIB_PATH)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return _LIB_PATH
+def cuda_type_codes(w_dtype: torch.dtype, fac_dtype: torch.dtype,
+                    acc_dtype: Optional[torch.dtype]) -> Tuple[int, int]:
+    """The CUDA kernel's (storage, accumulator) type codes for these dtypes.
 
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        fn = lib.fd_bucket_gather_reduce
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        _lib = lib
-    return _lib
+    The accumulation type is ``acc_dtype or w_dtype``; the pair must be one
+    of ``CUDA_DTYPE_PAIRS``, and ``fac`` must be in the accumulation type.
+    Raises ``ValueError`` otherwise."""
+    acc = acc_dtype or w_dtype
+    if (w_dtype, acc) not in CUDA_DTYPE_PAIRS:
+        raise ValueError(f"the CUDA kernel stores {w_dtype} with accumulation {acc}: "
+                         f"not one of its pairs {CUDA_DTYPE_PAIRS}")
+    if fac_dtype != acc:
+        raise ValueError(f"fac dtype {fac_dtype} differs from the accumulation dtype {acc}")
+    return _TYPE_CODE[w_dtype], _TYPE_CODE[acc]
 
 
 def _check(w: torch.Tensor, idx: torch.Tensor, fac: torch.Tensor, start: int) -> None:
     if w.dim() != 2 or not w.is_contiguous():
         raise ValueError(f"w must be a contiguous 2-D tensor, got shape {tuple(w.shape)}")
-    if w.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"w must be float32 or float64, got {w.dtype}")
+    if w.dtype not in STORAGE_DTYPES:
+        raise ValueError(f"w must be one of {STORAGE_DTYPES}, got {w.dtype}")
     if idx.dim() != 3 or idx.dtype != torch.int32 or not idx.is_contiguous():
         raise ValueError("idx must be a contiguous int32 [n_op, arity, count] tensor")
     n_op, arity, count = idx.shape
@@ -151,11 +120,12 @@ def bucket_gather_reduce(w: torch.Tensor, idx: torch.Tensor, fac: torch.Tensor,
     """Write ``sum_a fac[a, c] * prod_k w[idx[k, a, c]]`` into rows
     ``start .. start + count`` of ``w``.
 
-    A CUDA ``w`` launches the kernel on the current stream (it accumulates in
-    ``w``'s type and takes no ``acc_dtype`` other than that; ``chunk_rows``
-    does not apply).  A CPU ``w`` runs ``bucket_gather_reduce_plain``.  Any
-    other device raises.  ``bucket_gather_reduce.launches`` counts kernel
-    launches.
+    A CUDA ``w`` launches the kernel on the current stream: it reads ``w``
+    in its storage type, computes in ``acc_dtype or w.dtype`` (a pair of
+    ``CUDA_DTYPE_PAIRS``, with ``fac`` in the accumulation type) and rounds
+    once to ``w.dtype`` on store; ``chunk_rows`` does not apply.  A CPU ``w``
+    runs ``bucket_gather_reduce_plain``.  Any other device raises.
+    ``bucket_gather_reduce.launches`` counts kernel launches.
     """
     if w.device.type == "cpu":
         bucket_gather_reduce_plain(w, idx, fac, start, compensated=compensated,
@@ -165,18 +135,14 @@ def bucket_gather_reduce(w: torch.Tensor, idx: torch.Tensor, fac: torch.Tensor,
         raise ValueError(f"bucket_gather_reduce runs on cuda or cpu tensors, "
                          f"not {w.device.type}")
     _check(w, idx, fac, start)
-    if fac.dtype != w.dtype:
-        raise ValueError(f"fac dtype {fac.dtype} differs from w dtype {w.dtype}")
-    if acc_dtype not in (None, w.dtype):
-        raise ValueError(f"the CUDA kernel accumulates in w's dtype {w.dtype}, "
-                         f"not {acc_dtype}")
-    lib = _load()
+    storage, acc = cuda_type_codes(w.dtype, fac.dtype, acc_dtype)
+    lib = build.load("bucket_gather_reduce", _bind)
     n_op, arity, count = idx.shape
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
         err = lib.fd_bucket_gather_reduce(
             w.data_ptr(), idx.data_ptr(), fac.data_ptr(), n_op, arity, count,
-            w.shape[1], start, int(w.dtype == torch.float64), int(compensated), stream)
+            w.shape[1], start, storage, acc, int(compensated), stream)
     if err != 0:
         raise RuntimeError(f"bucket_gather_reduce launch failed: cudaError {err}")
     bucket_gather_reduce.launches += 1

@@ -116,7 +116,8 @@ def test_port_artifact_loads_in_jax(tmp_path):
 
 def test_port_runs_with_jax_blocked(tmp_path):
     """A fresh interpreter with jax blocked imports the port, generates,
-    lowers and evaluates order-2 Gamma4, and loads no jax module."""
+    lowers and evaluates order-2 Gamma4, imports and runs the two probe
+    modules on the CPU, and loads no jax module."""
     roots, para = _vertex4(2)
     varK, varT = _samples(para, 8, 11)
     expected = np.asarray(jax_compile.compile_evaluator(
@@ -138,6 +139,11 @@ c = compile_evaluator(roots, max_loop_num=para.totalLoopNum, beta={BETA}, kF={KF
                       lam={LAM}, device="cpu", dtype=torch.float64)
 out = c(np.load({str(tmp_path / 'varK.npy')!r}), np.load({str(tmp_path / 'varT.npy')!r}))
 np.save({str(tmp_path / 'out.npy')!r}, out.numpy())
+from feynmandiagram_tpu_torch.benchmarks import probe_gather, probe_mosaic_caps
+assert probe_mosaic_caps.case_acc(*probe_mosaic_caps.probe_inputs("cpu"))[0, :2].tolist() \\
+    == [2432, 2436]
+x = probe_gather.make_inputs("cpu", 64, 16, 64, 32, 8)
+assert probe_gather.gather_scale_sum(x["w"], x["idx"], x["fac"]).shape == (8, 16)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax" and sys.modules[m])
 loaded += sorted(m for m in sys.modules if m.startswith("feynmandiagram_tpu.")
                  and m.split(".")[1] in ("models", "backends", "parallel"))

@@ -196,6 +196,55 @@ def test_acc_dtype_widens_f32_storage():
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7 * np.abs(ref).max())
 
 
+def test_bf16_storage_f32_acc_matches_jax():
+    """tests/test_lowering.py::test_bf16_storage_f32_acc in the port: order-2
+    Gamma4, bucketed, half-width bf16 buffer with float32 accumulation.  Each
+    of port and JAX is held to that test's bounds against float64.  Between
+    them: both round every stored level to bf16 (unit roundoff 2^-8) after
+    float32 sums taken in another order, so a rounding may flip by one bf16
+    ulp and carry on up the levels; they must agree within 2^-6 relative to
+    the output scale, four times that ulp."""
+    roots = _gamma4(2)
+    low = lower(roots, leafmap_of(roots), sum_mode="bucketed")
+    vals = np.random.default_rng(2).uniform(0.25, 4.0, (len(leafmap_of(roots)), 16))
+    f64 = jax_eval(low, vals)
+    out = make_evaluator(low, device="cpu", dtype=torch.bfloat16,
+                         acc_dtype=torch.float32)(vals.astype(np.float32))
+    assert out.dtype == torch.float32
+    got = out.double().numpy()
+    ref = np.asarray(jax_make_evaluator(low, dtype=jnp.bfloat16, acc_dtype=jnp.float32)(
+        vals.astype(np.float32)), np.float64)
+    denom = np.maximum(np.abs(f64), 1e-3 * np.abs(f64).max())
+    for mixed in (got, ref):
+        rel = np.abs(mixed - f64) / denom
+        assert np.median(rel) < 1e-2, np.median(rel)
+        assert rel.max() < 0.5, rel.max()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2.0 ** -6 * np.abs(ref).max())
+
+
+def test_compile_evaluator_f32_storage_f64_acc_matches_jax():
+    """compile_evaluator(dtype=float32, acc_dtype=float64) against the JAX
+    package's, on order-2 Gamma4.  The float32 leaf phases differ in
+    rounding (closed-form G tower against nested grad), so the roots agree
+    to float32 storage: per root, max|diff| <= 1e-5 * max|ref|."""
+    from feynmandiagram_tpu.backends import compile as jax_compile
+    from feynmandiagram_tpu_torch.backends import compile_evaluator
+    para = DiagPara(type=Ver4Diag, innerLoopNum=2, hasTau=True, filter=(NoHartree,),
+                    interaction=(Interaction(ChargeCharge, Instant),))
+    roots = _gamma4(2)
+    rng = np.random.default_rng(7)
+    varK = rng.standard_normal((3, para.totalLoopNum, 16))
+    varT = rng.random((para.totalTauNum, 16)) * 0.5
+    kw = dict(max_loop_num=para.totalLoopNum, beta=0.5, kF=1.919, lam=1.0)
+    ref = np.asarray(jax_compile.compile_evaluator(
+        roots, dtype=np.float32, acc_dtype=np.float64, layout="flat", **kw)(varK, varT))
+    got = compile_evaluator(roots, device="cpu", dtype=torch.float32,
+                            acc_dtype=torch.float64, **kw)(varK, varT)
+    assert got.dtype == torch.float64 and got.shape == ref.shape
+    scale = np.abs(ref).max(axis=1, keepdims=True)
+    assert (np.abs(got.numpy() - ref) <= 1e-5 * scale).all()
+
+
 # ---- order-2 and order-3 Gamma4 over every lowering option
 
 _ROOTS = {}

@@ -9,7 +9,8 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from feynmandiagram_tpu.ops.kernels import bucket_gather_reduce as jax_bucket  # noqa: E402
-from feynmandiagram_tpu_torch.ops import kernels  # noqa: E402
+from feynmandiagram_tpu_torch.ops import build, kernels  # noqa: E402
+from feynmandiagram_tpu_torch.ops.evaluator import make_evaluator  # noqa: E402
 from feynmandiagram_tpu_torch.ops.kernels import (bucket_gather_reduce,  # noqa: E402
                                                   bucket_gather_reduce_plain)
 
@@ -149,6 +150,94 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     """On a machine without nvcc the CUDA build raises (no fallback)."""
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(kernels, "_LIB_PATH", str(tmp_path / "missing.so"))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
     with pytest.raises(RuntimeError, match="nvcc"):
-        kernels.build()
+        build.build("bucket_gather_reduce")
+
+
+F32, F64, BF16 = torch.float32, torch.float64, torch.bfloat16
+
+
+@pytest.mark.parametrize("storage,acc", kernels.CUDA_DTYPE_PAIRS)
+def test_cuda_dtype_pairs_give_type_codes(storage, acc):
+    codes = kernels.cuda_type_codes(storage, acc, acc)
+    assert codes == (kernels._TYPE_CODE[storage], kernels._TYPE_CODE[acc])
+    if storage == acc:
+        assert kernels.cuda_type_codes(storage, acc, None) == codes
+
+
+@pytest.mark.parametrize("storage,fac,acc", [
+    (F64, F32, F32),     # narrower accumulation than storage
+    (BF16, F64, F64),    # not instantiated
+    (BF16, BF16, None),  # bf16 accumulation
+    (F32, F32, F64),     # fac not in the accumulation type
+    (F32, F64, None),    # fac not in the storage type
+    (torch.float16, torch.float16, None),
+])
+def test_cuda_dtype_pair_validation_rejects(storage, fac, acc):
+    """The CUDA wrapper's type check, run on the CPU apart from the launch,
+    and through make_evaluator, which checks the pair before any upload."""
+    with pytest.raises(ValueError):
+        kernels.cuda_type_codes(storage, fac, acc)
+    if fac == (acc or storage):
+        with pytest.raises(ValueError):
+            make_evaluator(_tiny_lowered(), device="cuda", dtype=storage, acc_dtype=acc)
+
+
+def _tiny_lowered():
+    from feynmandiagram_tpu.computational_graph import Graph
+    from feynmandiagram_tpu.ops.lowering import lower
+    leaves = [Graph([], properties=i) for i in range(2)]
+    return lower([Graph(leaves, subgraph_factors=[1.0, 2.0])],
+                 {leaf.id: i for i, leaf in enumerate(leaves)}, sum_mode="fused")
+
+
+@pytest.mark.parametrize("compensated", [False, True])
+def test_plain_bf16_storage_f32_acc(compensated):
+    """bf16 storage: terms widened to float32, summed there, rounded once to
+    bf16, the same as rounding the float64 sum of the same bf16 inputs to
+    bf16 up to one bf16 ulp (2^-7 relative at worst)."""
+    rng = np.random.default_rng(21)
+    S, B, A, C = 24, 16, 8, 13
+    w, idx, fac = _case(rng, S, B, A, C, 2)
+    wb = torch.from_numpy(w).to(BF16)
+    ref = _numpy_ref(wb.double().numpy(), idx, fac)
+    bucket_gather_reduce(wb, torch.from_numpy(idx), torch.from_numpy(fac).float(), S,
+                         compensated=compensated, acc_dtype=F32)
+    got = wb[S:].double().numpy()
+    size = _numpy_ref(np.abs(wb.double().numpy()), idx, np.abs(fac))
+    assert wb.dtype == BF16
+    assert np.all(np.abs(got - ref) <= 2.0 ** -7 * size)
+
+
+def _rounding_excess(got, exact, size, mant_bits, rtol):
+    """max |got - exact| / (half a storage ulp of the value + rtol * the
+    terms' size): at most 1 where got is exact rounded once to storage."""
+    mag = np.maximum(np.abs(got), np.abs(exact))
+    ulp = np.exp2(np.frexp(mag)[1] - 1.0 - mant_bits)
+    return np.max(np.abs(got - exact) / (0.5 * ulp + rtol * size))
+
+
+@pytest.mark.parametrize("storage,acc,mant_bits,rtol", [(F32, F64, 23, 1e-12),
+                                                        (BF16, F32, 7, 1e-5)])
+@pytest.mark.parametrize("compensated", [False, True])
+def test_wider_acc_rounds_once_and_storage_acc_does_not(storage, acc, mant_bits, rtol,
+                                                        compensated):
+    """With a wider acc_dtype the plain version returns the exact sum of its
+    inputs rounded once to storage, within half a storage ulp plus the
+    accumulation's error.  Accumulating in the storage type breaks that
+    bound, so the bound (chip_smoke holds the kernel to it) tells the two
+    accumulation types apart."""
+    rng = np.random.default_rng(23)
+    S, B, A, C = 32, 64, 16, 24
+    w, idx, fac = _case(rng, S, B, A, C, 3)
+    ws = torch.from_numpy(w).to(storage)
+    exact = _numpy_ref(ws.double().numpy(), idx, fac)
+    size = _numpy_ref(np.abs(ws.double().numpy()), idx, np.abs(fac))
+    excess = {}
+    for a in (acc, None):
+        wk = ws.clone()
+        bucket_gather_reduce(wk, torch.from_numpy(idx), torch.from_numpy(fac).to(acc), S,
+                             compensated=compensated, acc_dtype=a)
+        excess[a] = _rounding_excess(wk[S:].double().numpy(), exact, size, mant_bits, rtol)
+    assert excess[acc] <= 1.0 < excess[None]

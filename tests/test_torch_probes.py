@@ -1,0 +1,241 @@
+"""The port's row-access probes and gather strategies on the CPU.
+
+The reference is the JAX package's own ``benchmarks/probe_mosaic_caps.py``,
+run untouched with every ``pallas_call`` in interpret mode; its case
+functions read the module's ``w``, ``rows``, ``S`` and ``B``, which the
+random cases replace.  The plain versions must equal it exactly: every case
+moves values or adds them in the reference's order, and the one-hot product
+has one nonzero term.  ``k_take`` does not trace in interpret mode
+("captures constants"), so take is held to ``jnp.take``.  The CUDA kernels
+themselves are checked on the card by ``chip_smoke.py``.
+"""
+import functools
+import os
+import runpy
+import unittest.mock
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.experimental import pallas as pl  # noqa: E402
+
+from feynmandiagram_tpu_torch.benchmarks import probe_gather as pg  # noqa: E402
+from feynmandiagram_tpu_torch.benchmarks import probe_mosaic_caps as pm  # noqa: E402
+from feynmandiagram_tpu_torch.ops import build  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NAMES = ["dma8", "dmagrp", "vmemrow", "vmem8", "acc", "onehot", "dynwrite", "dmadyn_dst"]
+
+
+def _interpret():
+    return unittest.mock.patch.object(pl, "pallas_call",
+                                      functools.partial(pl.pallas_call, interpret=True))
+
+
+@pytest.fixture(scope="module")
+def jax_script():
+    """The JAX script's globals (its cases' namespace) after one run."""
+    with _interpret():
+        g = runpy.run_path(os.path.join(REPO, "benchmarks", "probe_mosaic_caps.py"))
+    return g["case_dma8"].__globals__
+
+
+def _jax_case(ns, name, w=None, rows=None):
+    """Call the JAX script's case_<name>, on its own data or on ``w``/``rows``."""
+    saved = {k: ns[k] for k in ("w", "rows", "S", "B")}
+    try:
+        if w is not None:
+            ns.update(w=jax.device_put(w), rows=jax.device_put(np.asarray(rows, np.int32)),
+                      S=w.shape[0], B=w.shape[1])
+        with _interpret():
+            return np.asarray(ns[f"case_{name}"]())
+    finally:
+        ns.update(saved)
+
+
+def _case(name):
+    return getattr(pm, f"case_{name}")
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_plain_equals_interpret_reference(jax_script, name):
+    w, rows = pm.probe_inputs("cpu")
+    got = _case(name)(w, rows).numpy()
+    ref = _jax_case(jax_script, name)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_reference_values():
+    """The first values the JAX script prints on a TPU and in interpret mode."""
+    w, rows = pm.probe_inputs("cpu")
+    first = {name: _case(name)(w, rows).reshape(-1)[:2].tolist() for name in NAMES}
+    assert first == {"dma8": [704, 705], "dmagrp": [192, 193], "vmemrow": [704, 705],
+                     "vmem8": [704, 705], "acc": [2432, 2436], "onehot": [704, 705],
+                     "dynwrite": [0, 0], "dmadyn_dst": [632, 633]}
+    np.testing.assert_array_equal(pm.case_dynwrite(w, rows)[1].numpy(), w[0].numpy())
+
+
+def test_take_matches_jnp_take():
+    w, rows = pm.probe_inputs("cpu")
+    ref = jnp.take(jnp.asarray(w[:256].numpy()), jnp.asarray(pm.TAKE_ROWS, jnp.int32), axis=0)
+    np.testing.assert_array_equal(pm.case_take(w, rows).numpy(), np.asarray(ref))
+
+
+RS, RB = 512, 256   # random cases: w is [RS, RB]
+
+
+@pytest.mark.parametrize("name,rows", [
+    ("dma8", (RS - 8, 3, 0, 0)),          # the last 8-row window
+    ("dma8", (0, 3, 0, 0)),
+    ("dmagrp", (RS - 1, 0, 0, 0)),        # the last group
+    ("vmemrow", (300, 0, 0, 0)),          # clamped to row 255
+    ("vmemrow", (-5, 0, 0, 0)),           # from the end: row 251
+    ("vmemrow", (-300, 0, 0, 0)),         # clamped to row 0
+    ("vmem8", (252, 0, 0, 0)),            # clamped to rows 248..255
+    ("vmem8", (-3, 0, 0, 0)),             # from the end, then clamped
+    ("acc", (-7, 255, 1000, -1000)),      # wrap, in range, clamp high, clamp low
+    ("onehot", (251, 0, 0, 0)),           # rows past the block select nothing
+    ("onehot", (-3, 0, 0, 0)),
+    ("dynwrite", (-3, 0, 0, 0)),          # floor modulo: row 5
+    ("dmadyn_dst", (RS // 8 - 1, -4, 0, 0)),   # j = -4 mod 4 = 0
+])
+def test_random_data_equals_interpret_reference(jax_script, name, rows):
+    rng = np.random.default_rng(sum(map(abs, rows)) + len(name))
+    w = rng.standard_normal((RS, RB)).astype(np.float32)
+    got = _case(name)(torch.from_numpy(w), torch.tensor(rows, dtype=torch.int32)).numpy()
+    np.testing.assert_array_equal(got, _jax_case(jax_script, name, w, rows))
+
+
+def test_random_data_take():
+    w = np.random.default_rng(5).standard_normal((RS, RB)).astype(np.float32)
+    got = pm.case_take(torch.from_numpy(w), torch.zeros(4, dtype=torch.int32)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jnp.take(w[:256], jnp.asarray(
+        pm.TAKE_ROWS), axis=0)))
+
+
+@pytest.mark.parametrize("r1", [1, 2, 3, -1, 6])
+def test_dmadyn_dst_other_offsets_read_zeroed_scratch(r1):
+    """For rows[1] mod 4 != 0 the copy lands outside scratch[0:8], which the
+    TPU kernel left uninitialised and the port zero-fills."""
+    w = torch.from_numpy(np.random.default_rng(4).standard_normal((RS, RB)).astype(np.float32))
+    out = pm.case_dmadyn_dst(w, torch.tensor([3, r1, 0, 0], dtype=torch.int32))
+    assert out.shape == (8, RB) and not out.any()
+
+
+@pytest.mark.parametrize("name,rows", [
+    ("dma8", (RS - 7, 0, 0, 0)), ("dma8", (-1, 0, 0, 0)),
+    ("dmagrp", (RS, 0, 0, 0)), ("dmagrp", (-1, 0, 0, 0)),
+    ("dmadyn_dst", (RS // 8, 0, 0, 0)), ("dmadyn_dst", (-1, 0, 0, 0)),
+])
+def test_copy_out_of_bounds_raises(name, rows):
+    """The copies have no clamp: an out-of-range source raises on the host."""
+    w = torch.zeros((RS, RB), dtype=torch.float32)
+    with pytest.raises(ValueError, match="outside"):
+        _case(name)(w, torch.tensor(rows, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("bad", ["w_f64", "w_ragged_rows", "w_1d", "rows_int64",
+                                 "rows_short", "meta_device"])
+def test_wrapper_rejects_bad_arguments(bad):
+    w, rows = pm.probe_inputs("cpu", 64, 16)
+    if bad == "w_f64":
+        w = w.double()
+    elif bad == "w_ragged_rows":
+        w = w[:, :14].contiguous()
+    elif bad == "w_1d":
+        w = w.reshape(-1)
+    elif bad == "rows_int64":
+        rows = rows.long()
+    elif bad == "rows_short":
+        rows = rows[:3]
+    elif bad == "meta_device":
+        w = w.to("meta")
+    for _, case, _ in pm.CASES:
+        with pytest.raises(ValueError):
+            case(w, rows)
+
+
+def test_cpu_path_does_not_count_launches():
+    w, rows = pm.probe_inputs("cpu")
+    before = [case.launches for _, case, _ in pm.CASES]
+    for _, case, _ in pm.CASES:
+        case(w, rows)
+    assert [case.launches for _, case, _ in pm.CASES] == before
+
+
+def test_row_probes_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build("row_probes")
+
+
+# ---- probe_gather's strategies at S = 256, B = 128, E = 512
+
+GS, GB, GE, GW, GC = 256, 128, 512, 128, 64
+
+
+@pytest.fixture(scope="module")
+def gather_inputs():
+    return pg.make_inputs("cpu", GS, GB, GE, GW, GC)
+
+
+def test_inputs_follow_the_script_draws(gather_inputs):
+    rng = np.random.default_rng(0)
+    w = rng.standard_normal((GS, GB)).astype(np.float32)
+    idx = rng.integers(0, GS, size=GE).astype(np.int32)
+    fac = rng.standard_normal(GE).astype(np.float32)
+    col = rng.integers(0, GW, GC)
+    x = gather_inputs
+    np.testing.assert_array_equal(x["w"].numpy(), w)
+    np.testing.assert_array_equal(x["idx"].numpy(), idx)
+    np.testing.assert_array_equal(x["idx_sorted"].numpy(), np.sort(idx))
+    np.testing.assert_array_equal(x["fac"].numpy(), fac)
+    np.testing.assert_array_equal(x["onehot"].numpy().argmax(axis=1), col)
+    assert x["onehot"].sum() == GC and x["w_ext"].shape == (GS + GE // 8, GB)
+
+
+@pytest.mark.parametrize("strategy", ["stream", "gather", "take", "take_sorted"])
+def test_gather_strategy_equals_jax(gather_inputs, strategy):
+    x = gather_inputs
+    w, idx, srt = (x[k].numpy() for k in ("w", "idx", "idx_sorted"))
+    wj = jnp.asarray(w)
+    got, ref = {
+        "stream": (lambda: pg.stream(x["w"]), lambda: wj * 2.0),
+        "gather": (lambda: pg.gather(x["w"], x["idx"]), lambda: wj[idx]),
+        "take": (lambda: pg.take(x["w"], x["idx"]), lambda: jnp.take(wj, idx, axis=0)),
+        "take_sorted": (lambda: pg.take(x["w"], x["idx_sorted"]),
+                        lambda: wj.at[srt].get(mode="promise_in_bounds",
+                                               indices_are_sorted=True)),
+    }[strategy]
+    np.testing.assert_array_equal(got().numpy(), np.asarray(ref()))
+
+
+@pytest.mark.parametrize("through_kernel", [False, True])
+def test_gather_scale_sum_equals_jax(gather_inputs, through_kernel):
+    """The 8-way reduce of the script's :50-53.  The sums of 8 float32 terms
+    are taken in another order: rtol 1e-6 of the terms' size."""
+    x = gather_inputs
+    w, idx, fac = (x[k].numpy() for k in ("w", "idx", "fac"))
+    g = jnp.asarray(w).at[idx].get(mode="promise_in_bounds") * fac[:, None]
+    ref = np.asarray(jnp.sum(g.reshape(8, GE // 8, GB), axis=0))
+    if through_kernel:
+        got = pg.gather_scale_sum_kernel(x["w_ext"].clone(), GS, x["idx"], x["fac"])
+    else:
+        got = pg.gather_scale_sum(x["w"], x["idx"], x["fac"])
+    size = np.abs(w[idx] * fac[:, None]).reshape(8, GE // 8, GB).sum(axis=0)
+    assert got.shape == ref.shape
+    assert np.all(np.abs(got.numpy() - ref) <= 1e-6 * size)
+
+
+def test_onehot_equals_jax(gather_inputs):
+    x = gather_inputs
+    sel, win = x["onehot"].numpy(), x["w"][:GW].numpy()
+    ref = jnp.dot(sel, win, preferred_element_type=jnp.float32)
+    np.testing.assert_array_equal(pg.onehot(x["onehot"], x["w"][:GW]).numpy(),
+                                  np.asarray(ref))
