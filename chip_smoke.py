@@ -7,18 +7,28 @@ output line or more each:
 
 1. the card's name and power limit (nvidia-smi);
 2. the build of both CUDA libraries from ``feynmandiagram_tpu_torch/csrc``,
-   one nvcc each, started together;
+   one nvcc each, and of the host helper ``graphcore.cpp`` (g++), all
+   started together; the ``host:`` lines say whether the native helper or
+   its numpy path ran;
 3. the kernel against its plain PyTorch version on the card, on random
    buckets (n_op 1-4, float32 and float64, Kahan on and off) and on every
-   bucket of the order-4 fused and bucketed lowerings at batch 256;
+   bucket of the order-4 fused and bucketed lowerings at batch 256; then
+   the level launch against ``level_gather_reduce_plain`` on every level
+   of both lowerings at batch 256, 4096 and a ragged 4097, for the four
+   storage x accumulation pairs, Kahan on (max|diff| must be 0) and off;
 4. the slice: order-4 Gamma4 -> optimize -> ``compile_evaluator`` on cuda in
    float32 for sum_mode 'fused' and 'bucketed', against the port's plain
-   path in float64 on the card, with the kernel's launch count per pass;
-5. per-pass device and wall times of the kernel and of the plain version
-   (device time: CUDA events around launches queued behind a sleep
-   kernel), the fused pass's device time in bins of the launch's bytes,
-   Monte-Carlo samples/s of both slices and the device's idle share (the
-   profiler's busy time);
+   path in float64 on the card, with the kernel's launch count per pass,
+   which must be the number of levels that hold buckets;
+5. per-pass device and wall times of the level launches, of the same kernel
+   called bucket by bucket, and of the plain version (device time: CUDA
+   events around launches queued behind a sleep kernel), per level beside
+   the level's bound, the bound itself (bytes of the distinct rows a level
+   reads and of the rows it writes, over 3.35 TB/s), a sweep of the
+   launch geometry, ``torch.sparse.mm`` over the bucketed pass's buckets as
+   the library yardstick, the fused pass's device time in bins of the
+   launch's bytes, Monte-Carlo samples/s of both slices with their launch
+   counts and the device's idle share (the profiler's busy time);
 6. the bucket kernel's storage x accumulation pairs: kernel against plain
    for float32/float64 and bfloat16/float32 on random buckets and on every
    order-4 fused bucket, and against the float64 sum rounded once to
@@ -32,16 +42,18 @@ output line or more each:
 7. each of the nine row-access probe kernels against its plain version, on
    the JAX script's data and on random data;
 8. the probe path: ``benchmarks.probe_mosaic_caps.main()`` with every probe
-   count at 0 before it, its output against the JAX script's values;
+   count at 0 before it, its output against the JAX script's values, and
+   the one PyTorch call that computes a probe's function, where there is
+   one, timed beside it;
 9. ``benchmarks.probe_gather.run()``: the streaming roofline and the
    gather strategies at the JAX script's shapes, the bucket kernel among
    them.
 
 Then one JSON line on the ten kernels, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, and so
-does a machine without CUDA: nothing runs on the CPU instead.  jax is
-blocked from import; the port reaches only the jax-free host modules of
-``feynmandiagram_tpu``.
+does a machine without CUDA: nothing runs on the CPU instead.  ``jax`` and
+the JAX package ``feynmandiagram_tpu`` are blocked from import: the port
+stands on its own.
 """
 import json
 import os
@@ -68,6 +80,13 @@ TF32_REL = 2.0 ** -11   # one-hot probe: one term of w rounded to TF32
 TRACE_TRIES = 5         # profiler traces taken before one without device time fails
 QUEUED_REPS = 5         # timed repeats of queued_ms, of which the median counts
 QUEUED_BUCKETS = 16     # buckets timed in one queued_ms call
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet: the rate the bounds are taken at
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12}   # same sheet, dense
+RAGGED_BATCH = 4097     # no multiple of 4: rows lose their 16-byte alignment
+M = 2 ** 20
+# (widest record in pieces, bytes a column group may touch): the kernel's
+# launch geometry, None for what the wrapper picks
+GEOMETRIES = (None, (4, 24 * M), (2, 24 * M), (1, 24 * M), (4, 6 * M), (4, 1024 * M))
 # the JAX script's first two output values of each probe (on its data)
 PROBE_FIRST = {"dma8": [704, 705], "dmagrp": [192, 193], "vmemrow": [704, 705],
                "vmem8": [704, 705], "acc": [2432, 2436], "onehot": [704, 705],
@@ -87,33 +106,58 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
-    sys.modules["jax"] = None   # the port must not need jax
+    sys.modules["jax"] = None                   # the port must need neither jax
+    sys.modules["feynmandiagram_tpu"] = None    # nor the JAX package
     import numpy as np
-    from feynmandiagram_tpu_torch import _host as h
+    from feynmandiagram_tpu_torch import native
     from feynmandiagram_tpu_torch.backends import compile_evaluator
+    from feynmandiagram_tpu_torch.computational_graph import optimize_inplace
+    from feynmandiagram_tpu_torch.frontends import ChargeCharge, Instant, NoHartree
+    from feynmandiagram_tpu_torch.frontends.parquet import (DiagPara, Interaction, Ver4Diag,
+                                                            vertex4)
     from feynmandiagram_tpu_torch.mc import mc_run, mc_samples_per_s
     from feynmandiagram_tpu_torch.backends.compile import leafmap_of
-    from feynmandiagram_tpu_torch.benchmarks import card_name, probe_gather
+    from feynmandiagram_tpu_torch.benchmarks import card_name, median_ms, probe_gather
     from feynmandiagram_tpu_torch.benchmarks import probe_mosaic_caps as pm
     from feynmandiagram_tpu_torch.ops import build, kernels
-    from feynmandiagram_tpu_torch.ops.evaluator import make_evaluator
+    from feynmandiagram_tpu_torch.ops.evaluator import level_buckets, make_evaluator
+    from feynmandiagram_tpu_torch.ops.lowering import lower
     from feynmandiagram_tpu_torch.ops.leaf_eval import make_leaf_evaluator
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernel_fn, plain_fn = kernels.bucket_gather_reduce, kernels.bucket_gather_reduce_plain
+    level_fn, level_plain = kernels.level_gather_reduce, kernels.level_gather_reduce_plain
 
     # -- 1. card
     smi = card_name()
     print(f"card: {smi}", flush=True)
+    clock = [time.perf_counter()]
+
+    def phase(name):
+        """Say how long the phase that ends here took."""
+        clock.append(time.perf_counter())
+        print(f"phase: {name} took {clock[-1] - clock[-2]:.1f} s", flush=True)
+
+    dev_gen = torch.Generator(device=dev)
+    dev_gen.manual_seed(SEED)
+
+    def rand_w(rows, batch, dtype):
+        """A weight buffer of uniform values in [0.5, 1.5), made on the card."""
+        w = torch.rand((rows, batch), generator=dev_gen, dtype=torch.float32, device=dev)
+        return (w + 0.5).to(dtype)
 
     # -- 2. build, one nvcc per source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
+        host_lib = pool.submit(native.native_available)
         list(pool.map(build.build, ("bucket_gather_reduce", "row_probes")))
-    print(f"build: bucket_gather_reduce and row_probes built in "
+        host_path = "native graphcore library (g++)" if host_lib.result() else "numpy path"
+    print(f"build: bucket_gather_reduce, row_probes (nvcc) and graphcore (g++) built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"host: CSE and levelling of the lowering run on the {host_path}", flush=True)
+    phase("card and build")
 
     # -- 3. kernel against plain version
     def type_name(dtype):
@@ -163,13 +207,12 @@ def main() -> None:
                 print(f"kernel: {label}: max|diff| {err:.3e}", flush=True)
 
     t0 = time.perf_counter()
-    para = h.DiagPara(type=h.Ver4Diag, innerLoopNum=4, hasTau=True,
-                      filter=(h.NoHartree,),
-                      interaction=(h.Interaction(h.ChargeCharge, h.Instant),))
-    roots = [row["diagram"] for row in h.vertex4(para)]
-    h.optimize_inplace(roots, level=1)
-    print(f"host: order-4 Gamma4 generated and optimized in {time.perf_counter() - t0:.1f} s "
-          f"({len(roots)} roots)", flush=True)
+    para = DiagPara(type=Ver4Diag, innerLoopNum=4, hasTau=True, filter=(NoHartree,),
+                    interaction=(Interaction(ChargeCharge, Instant),))
+    roots = [row["diagram"] for row in vertex4(para)]
+    optimize_inplace(roots, level=1)
+    print(f"host: order-4 Gamma4 generated and optimized by the port's own front end in "
+          f"{time.perf_counter() - t0:.1f} s ({len(roots)} roots)", flush=True)
     compiled = {}
     for mode in ("fused", "bucketed"):
         t0 = time.perf_counter()
@@ -181,11 +224,12 @@ def main() -> None:
               f"slots, {low.num_edges} edges, {len(low.levels)} levels", flush=True)
 
     def buckets_of(low):
-        out = []
-        for lvl in low.levels:
-            out += [(np.asarray(sb.idx)[None], sb.fac, sb.start) for sb in lvl.sum_buckets]
-            out += [(fb.idx, fb.fac, fb.start) for fb in lvl.fused]
-        return out
+        return [b for lvl in low.levels for b in level_buckets(lvl)]
+
+    def tables_of(low, fac_dtype):
+        """The packed tables of every level of low that holds buckets."""
+        return [kernels.pack_level(level_buckets(lvl), dev, fac_dtype)
+                for lvl in low.levels if level_buckets(lvl)]
 
     main_err = 0.0
     for mode in ("fused", "bucketed"):
@@ -205,6 +249,67 @@ def main() -> None:
         print(f"kernel: every order-4 {mode} bucket ({n // 2}, Kahan off and on) at batch "
               f"{CHECK_BATCH} f32: ok, max|diff| {main_err:.3e}", flush=True)
 
+    def check_levels(low, w, storage, acc, compensated, label):
+        """Every level of low through the level launch and through its plain
+        version, each level on the same input (the buffer as the plain
+        version left it after the levels before).  Bound per element as in
+        check_bucket; on the Kahan path kernel and plain sum in one order
+        and must agree bit for bit.  Returns max|diff|."""
+        fac_dtype = acc or storage
+        wp = w.clone()
+        wm = None if compensated else w.abs().double()   # the terms' size, for the bound
+        worst = 0.0
+        for lvl in low.levels:
+            if not level_buckets(lvl):
+                continue
+            tables = kernels.pack_level(level_buckets(lvl), dev, fac_dtype)
+            wk = wp.clone()
+            level_fn(wk, tables, compensated=compensated, acc_dtype=acc)
+            level_plain(wp, tables, compensated=compensated, acc_dtype=acc)
+            diff = (wk.double() - wp.double()).abs()
+            if compensated:
+                ok = not bool(diff.any())
+            else:
+                level_plain(wm, kernels.pack_level(
+                    [(i, np.abs(f), s) for i, f, s in level_buckets(lvl)], dev, torch.float64))
+                bound = RTOL[type_name(fac_dtype)] * wm
+                if acc not in (None, storage):
+                    bound = bound + STORE_ULP[type_name(storage)] * wm
+                ok = not bool((diff > bound).any())
+            if not torch.isfinite(wk).all() or not ok:
+                fail(f"level kernel != plain on {label}: max|diff| {diff.max().item():.3e}")
+            written = torch.zeros(w.shape[0], dtype=torch.bool, device=dev)
+            for start, count in tables.desc[:, :2].tolist():
+                written[start:start + count] = True
+            if not torch.equal(wk[~written], wp[~written]):
+                fail(f"level kernel wrote outside its rows on {label}")
+            worst = max(worst, diff.max().item())
+        return worst
+
+    phase("host pipeline and bucket checks")
+    level_err = {}
+    for mode in ("fused", "bucketed"):
+        low = compiled[mode].lowered
+        for storage, acc in ((torch.float32, None), (torch.float64, None),
+                             (torch.float32, torch.float64), (torch.bfloat16, torch.float32)):
+            tag = f"{type_name(storage)}/{type_name(acc or storage)}"
+            errs = {}
+            for batch in (CHECK_BATCH, BATCH, RAGGED_BATCH):
+                w = rand_w(low.num_slots, batch, storage)
+                for comp in (False, True):
+                    errs[batch, comp] = check_levels(
+                        low, w, storage, acc, comp,
+                        f"order-4 {mode} {tag} batch {batch} compensated={comp}")
+            kahan = max(e for (_, comp), e in errs.items() if comp)
+            plain = max(e for (_, comp), e in errs.items() if not comp)
+            if mode == "fused" and acc is None and storage == torch.float32:
+                level_err = {"plain": plain, "kahan": kahan}
+            print(f"kernel: level launch = plain on every level of the order-4 {mode} lowering, "
+                  f"{tag}, batches {CHECK_BATCH}, {BATCH} and {RAGGED_BATCH}: Kahan max|diff| "
+                  f"{kahan:.3e} (must be 0), plain sums max|diff| {plain:.3e}", flush=True)
+
+    phase("level checks")
+
     # -- 4. the slice
     n_tau = para.totalTauNum
     varK = gen.standard_normal((3, para.totalLoopNum, BATCH))
@@ -213,17 +318,19 @@ def main() -> None:
     for mode in ("fused", "bucketed"):
         c = compiled[mode]
         n_buckets = len(buckets_of(c.lowered))
+        n_levels = sum(1 for lvl in c.lowered.levels if level_buckets(lvl))
         ref_leaf = make_leaf_evaluator(c.tables, beta=BETA, kF=KF, lam=LAM, device=dev,
                                        dtype=torch.float64)
         ref_graph = make_evaluator(c.lowered, device=dev, dtype=torch.float64, kernel=False)
         ref = ref_graph(ref_leaf(varK, varT))
         torch.cuda.synchronize()
-        kernel_fn.launches = 0
+        kernel_fn.launches = level_fn.launches = 0
         got = c(varK, varT)
         torch.cuda.synchronize()
-        launches[mode] = kernel_fn.launches
-        if launches[mode] != n_buckets:
-            fail(f"{mode}: kernel launched {launches[mode]} times, expected {n_buckets}")
+        launches[mode] = level_fn.launches + kernel_fn.launches
+        if level_fn.launches != n_levels or kernel_fn.launches != 0:
+            fail(f"{mode}: {level_fn.launches} level launches and {kernel_fn.launches} bucket "
+                 f"launches, expected {n_levels} (one per level that holds buckets) and 0")
         if got.shape != (len(roots), BATCH) or not torch.isfinite(got).all():
             fail(f"{mode}: output not finite or of shape {tuple(got.shape)}")
         d = (got.double() - ref).abs()
@@ -231,11 +338,14 @@ def main() -> None:
         scale_err = (d.max() / ref.abs().max()).item()
         worst = per_root.max().item()
         print(f"slice: {mode} f32 kernel vs f64 plain on the card, batch {BATCH}: "
-              f"{launches[mode]} kernel launches per pass ({n_buckets} buckets), "
+              f"{launches[mode]} kernel launches per pass ({n_buckets} buckets in {n_levels} "
+              f"levels), "
               f"max|d|/max|ref| {scale_err:.3e}, worst per-root {worst:.3e} "
               f"(limit {SLICE_TOL:g})", flush=True)
         if not worst <= SLICE_TOL:
             fail(f"{mode}: per-root scale-relative error {worst:.3e} > {SLICE_TOL}")
+
+    phase("slices")
 
     # -- 5. throughput and per-pass times
     from torch.profiler import ProfilerActivity, profile
@@ -262,25 +372,74 @@ def main() -> None:
         not wait for the device.  Kernel times are not taken from the
         profiler here: late in this script its traces on the card lost a
         pass's first kernel and, once, halved every kernel's duration."""
-        fn()
+        return float(queued_each_ms([lambda: [fn() for _ in range(n)]])[0]) / n
+
+    def queued_each_ms(fns):
+        """queued_ms of each of fns, run once each in order in one queue
+        behind one sleep kernel, with an event between them: their device
+        times as they follow one another in a pass."""
+        for fn in fns:
+            fn()
         torch.cuda.synchronize()
-        cycles, times = 10 ** 7, []
-        while len(times) < QUEUED_REPS:
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        cycles, runs = 10 ** 7, []
+        while len(runs) < QUEUED_REPS:
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(len(fns) + 1)]
             torch.cuda._sleep(cycles)
-            e0.record()
-            for _ in range(n):
+            events[0].record()
+            for fn, event in zip(fns, events[1:]):
                 fn()
-            e1.record()
-            starved = e0.query()
+                event.record()
+            starved = events[0].query()
             torch.cuda.synchronize()
             if not starved:
-                times.append(e0.elapsed_time(e1) / n)
+                runs.append([a.elapsed_time(b) for a, b in zip(events, events[1:])])
             elif cycles < 2 ** 32:
                 cycles *= 2
             else:
                 fail("the host did not enqueue a timed call within a sleep of 2^32 cycles")
-        return float(np.median(times))
+        return np.median(np.asarray(runs), axis=0)
+
+    def level_bounds(low, batch, elsize):
+        """Per level that holds buckets, the least time the card could take
+        and what sets it: bytes (every distinct row the level's buckets read
+        and every row they write, once each, over the memory rate) against
+        operations (a multiply per operand and an add per term and element,
+        over the float32 rate).  Also the same bytes with the rows counted
+        once per bucket, what a launch per bucket must move."""
+        out = []
+        for lvl in low.levels:
+            bl = level_buckets(lvl)
+            if not bl:
+                continue
+            rows_out = sum(i.shape[2] for i, _, _ in bl)
+            per_level = len(np.unique(np.concatenate([i.ravel() for i, _, _ in bl])))
+            per_bucket = sum(len(np.unique(i)) for i, _, _ in bl)
+            flops = sum(i.shape[1] * i.shape[2] * (i.shape[0] + 1) for i, _, _ in bl) * batch
+            t_bytes = (per_level + rows_out) * batch * elsize / HBM_BYTES_PER_S
+            t_ops = flops / PEAK_FLOPS["float32"]
+            out.append({"ms": 1e3 * max(t_bytes, t_ops),
+                        "by": "bytes" if t_bytes >= t_ops else "operations",
+                        "per_bucket_ms": 1e3 * (per_bucket + rows_out) * batch * elsize
+                        / HBM_BYTES_PER_S,
+                        "rows": (per_level, rows_out,
+                                 sum(i.shape[0] * i.shape[1] * i.shape[2] for i, _, _ in bl))})
+        return out
+
+    def sparse_buckets(low):
+        """Each n_op = 1 bucket of low as the [count, num_slots] CSR matrix
+        whose product with w is the bucket's function."""
+        mats = []
+        for idx, fac, _ in buckets_of(low):
+            n_op, arity, count = idx.shape
+            if n_op != 1:
+                fail("sparse_buckets: a bucket of n_op > 1 is no single sparse product")
+            rows = np.tile(np.arange(count), arity)
+            coo = torch.sparse_coo_tensor(
+                torch.as_tensor(np.stack([rows, idx[0].reshape(-1)]), device=dev),
+                torch.as_tensor(np.asarray(fac, np.float32).reshape(-1), device=dev),
+                (count, low.num_slots)).coalesce()
+            mats.append(coo.to_sparse_csr())
+        return mats
 
     def buckets_ms(op, w, bl, **kw):
         """Device time of op over the buckets bl: queued_ms of runs of
@@ -359,18 +518,72 @@ def main() -> None:
         def all_buckets(op):
             return lambda: [op(w, i, f, s) for i, f, s in bl]
 
+        tabs = tables_of(c.lowered, torch.float32)
+
+        def all_levels(geometry=None):
+            return [lambda t=t: level_fn(w, t, geometry=geometry) for t in tabs]
+
+        def level_pass(geometry=None):
+            fns = all_levels(geometry)
+            return lambda: [fn() for fn in fns]
+
         kd, pd = in_turns(lambda op: buckets_ms(op, w, bl), kernel_fn, plain_fn)
+        ld1, per_level, ld2 = (queued_ms(level_pass()), queued_each_ms(all_levels()),
+                               queued_ms(level_pass()))
+        ld = (ld1 + ld2) / 2
         kb, pb = in_turns(wall_ms, all_buckets(kernel_fn), all_buckets(plain_fn))
-        times[mode] = (kd, pd)
+        lb = wall_ms(level_pass())
+        bounds = level_bounds(c.lowered, BATCH, 4)
+        bound = sum(b["ms"] for b in bounds)
+        times[mode] = {"level_ms": ld, "bucket_ms": kd, "plain_ms": pd, "bound_ms": bound,
+                       "bound_by": max(bounds, key=lambda b: b["ms"])["by"]}
         if mode == "fused":
             launch_sizes(c.lowered, w, bl)
         plain_graph = make_evaluator(c.lowered, device=dev, dtype=torch.float32, kernel=False)
         leaves = c.leaf_fn(varK, varT)
         kg, pg = in_turns(wall_ms, lambda: c.graph_fn(leaves), lambda: plain_graph(leaves))
-        print(f"time: {mode} batch {BATCH} f32, all {len(bl)} buckets of a pass: device, "
-              f"back to back, kernel {kd:.4f} ms vs plain {pd:.4f} ms; wall kernel {kb:.4f} ms vs plain "
-              f"{pb:.4f} ms; graph phase wall kernel {kg:.4f} ms vs plain {pg:.4f} ms  "
-              f"[{smi}]", flush=True)
+        gq = queued_ms(lambda: c.graph_fn(leaves))
+        print(f"time: {mode} batch {BATCH} f32, the buckets of a pass, device, back to back: "
+              f"{len(tabs)} level launches {ld:.4f} ms ({bound / ld:.3f} of the bound "
+              f"{bound:.4f} ms = distinct rows per level + written rows over 3.35 TB/s; rows "
+              f"counted per bucket {sum(b['per_bucket_ms'] for b in bounds):.4f} ms); the same "
+              f"kernel bucket by bucket, {len(bl)} launches, {kd:.4f} ms; plain {pd:.4f} ms.  "
+              f"Wall: level launches {lb:.4f} ms, bucket by bucket {kb:.4f} ms, plain "
+              f"{pb:.4f} ms; graph phase wall kernel {kg:.4f} ms vs plain {pg:.4f} ms, queued "
+              f"{gq:.4f} ms  [{smi}]", flush=True)
+        print(f"levels: {mode} batch {BATCH} f32, per level: device us / bound us (share), "
+              f"rows read distinct + written (gathers requested): " + "; ".join(
+                  f"L{k} {1e3 * t:.1f}/{1e3 * b['ms']:.1f} ({b['ms'] / t:.2f}) "
+                  f"{b['rows'][0]}+{b['rows'][1]} ({b['rows'][2]})"
+                  for k, (t, b) in enumerate(zip(per_level, bounds)))
+              + f"; sum {1e3 * per_level.sum():.1f} us  [{smi}]", flush=True)
+        for batch in (BATCH, 4 * BATCH):
+            wg = w if batch == BATCH else rand_w(c.lowered.num_slots, batch, torch.float32)
+            geo = {g: queued_ms(lambda: [level_fn(wg, t, geometry=g) for t in tabs])
+                   for g in GEOMETRIES}
+            print(f"geometry: {mode} batch {batch} f32, level launches of a pass, device ms by "
+                  f"(widest record in pieces, MiB a column group may touch): " + ", ".join(
+                      f"{'default' if g is None else (g[0], g[1] // M)} {t:.4f}"
+                      for g, t in geo.items()) + f"  [{smi}]", flush=True)
+            del wg
+        if mode == "bucketed":
+            mats = sparse_buckets(c.lowered)
+            outs = [torch.sparse.mm(m, w) for m in mats]
+            for (idx, fac, start), out in zip(bl, outs):
+                wk = w.clone()
+                kernel_fn(wk, idx, fac, start)
+                d = (out - wk[start:start + out.shape[0]]).abs().max().item()
+                if not d <= 1e-4 * out.abs().max().item():
+                    fail(f"torch.sparse.mm differs from the kernel on the bucket at row {start}: "
+                         f"max|diff| {d:.3e}")
+            lib_ms = sum(queued_ms(lambda: [torch.sparse.mm(m, w) for m in
+                                            mats[k:k + QUEUED_BUCKETS]])
+                         for k in range(0, len(mats), QUEUED_BUCKETS))
+            times[mode]["library_ms"] = lib_ms
+            print(f"library: bucketed batch {BATCH} f32, torch.sparse.mm of each of the "
+                  f"{len(mats)} buckets' CSR matrices with w, back to back: {lib_ms:.4f} ms "
+                  f"(level launches {ld:.4f} ms)  [{smi}]", flush=True)
+            del mats, outs
         for batch in (BATCH, 2 * BATCH):
             mc_kw = dict(n_loop=para.totalLoopNum, num_tau=n_tau, batch=batch,
                          n_roots=len(roots), device=dev, dtype=torch.float32, beta=BETA)
@@ -378,11 +591,20 @@ def main() -> None:
             def one():
                 mc_run(c.fn, iters=1, seed=SEED, **mc_kw)
 
+            level_fn.launches = kernel_fn.launches = 0
+            mc_run(c.fn, iters=3, seed=SEED, **mc_kw)
+            torch.cuda.synchronize()
+            if level_fn.launches != 3 * len(tabs) or kernel_fn.launches != 0:
+                fail(f"mc_run {mode}: {level_fn.launches} level and {kernel_fn.launches} bucket "
+                     f"launches in 3 passes, expected {3 * len(tabs)} and 0")
             busy, wall = busy_ms(one), wall_ms(one, n=20)
             sps = mc_samples_per_s(c.fn, iters=100, reps=3, **mc_kw)
-            print(f"mc: {mode} batch {batch} f32: {sps:.1f} samples/s; per pass wall "
+            print(f"mc: {mode} batch {batch} f32: {sps:.1f} samples/s, {len(tabs)} kernel "
+                  f"launches per pass; per pass wall "
                   f"{wall:.4f} ms, device busy {busy:.4f} ms (idle share "
                   f"{max(0.0, 1 - busy / wall):.3f})  [{smi}]", flush=True)
+
+    phase("times and Monte-Carlo runs")
 
     # -- 6. storage x accumulation pairs of the bucket kernel
     def rounding_excess(got, exact, size, storage, acc):
@@ -445,18 +667,18 @@ def main() -> None:
     ref = make_evaluator(c64.lowered, device=dev, dtype=torch.float64, kernel=False)(
         make_leaf_evaluator(c64.tables, beta=BETA, kF=KF, lam=LAM, device=dev,
                             dtype=torch.float64)(varK, varT))
-    kernel_fn.launches = 0
+    level_fn.launches = 0
     got = c64(varK, varT)
     torch.cuda.synchronize()
-    n_buckets = len(buckets_of(c64.lowered))
-    if kernel_fn.launches != n_buckets:
-        fail(f"f64-acc slice: kernel launched {kernel_fn.launches} times, expected {n_buckets}")
+    n_levels = sum(1 for lvl in c64.lowered.levels if level_buckets(lvl))
+    if level_fn.launches != n_levels:
+        fail(f"f64-acc slice: kernel launched {level_fn.launches} times, expected {n_levels}")
     if got.dtype != torch.float64 or got.shape != ref.shape or not torch.isfinite(got).all():
         fail(f"f64-acc slice: output {got.dtype} {tuple(got.shape)} or not finite")
     worst = per_root(got, ref)
     print(f"slice: fused f32 storage / f64 accumulation via compile_evaluator (built in "
           f"{time.perf_counter() - t0:.1f} s) vs f64 plain, batch {BATCH}: "
-          f"{kernel_fn.launches} kernel launches per pass, worst per-root {worst:.3e} "
+          f"{level_fn.launches} kernel launches per pass, worst per-root {worst:.3e} "
           f"(limit {SLICE_TOL:g})", flush=True)
     if not worst <= SLICE_TOL:
         fail(f"f64-acc slice: per-root scale-relative error {worst:.3e} > {SLICE_TOL}")
@@ -479,20 +701,22 @@ def main() -> None:
 
     kd64, pd64 = in_turns(lambda op: buckets_ms(op, w, bl, acc_dtype=torch.float64),
                           kernel_fn, plain_fn)
-    print(f"time: fused batch {BATCH} f32 storage / f64 accumulation, all {len(bl)} buckets "
-          f"of a pass: device, back to back, kernel {kd64:.4f} ms vs plain {pd64:.4f} ms (f32/f32 kernel "
-          f"{times['fused'][0]:.4f} ms above)  [{smi}]", flush=True)
+    tabs64 = tables_of(c64.lowered, torch.float64)
+    ld64 = queued_ms(lambda: [level_fn(w, t, acc_dtype=torch.float64) for t in tabs64])
+    print(f"time: fused batch {BATCH} f32 storage / f64 accumulation, the buckets of a pass, "
+          f"device, back to back: {len(tabs64)} level launches {ld64:.4f} ms (f32/f32 "
+          f"{times['fused']['level_ms']:.4f} ms above); bucket by bucket, {len(bl)} launches, "
+          f"{kd64:.4f} ms vs plain {pd64:.4f} ms  [{smi}]", flush=True)
 
-    para2 = h.DiagPara(type=h.Ver4Diag, innerLoopNum=2, hasTau=True,
-                       filter=(h.NoHartree,),
-                       interaction=(h.Interaction(h.ChargeCharge, h.Instant),))
-    roots2 = [row["diagram"] for row in h.vertex4(para2)]
-    h.optimize_inplace(roots2, level=1)
+    para2 = DiagPara(type=Ver4Diag, innerLoopNum=2, hasTau=True, filter=(NoHartree,),
+                     interaction=(Interaction(ChargeCharge, Instant),))
+    roots2 = [row["diagram"] for row in vertex4(para2)]
+    optimize_inplace(roots2, level=1)
     leafmap2 = leafmap_of(roots2)
-    low2 = h.lower(roots2, leafmap2, sum_mode="bucketed")
+    low2 = lower(roots2, leafmap2, sum_mode="bucketed")
     vals = np.random.default_rng(2).uniform(0.25, 4.0, (len(leafmap2), 16))
     f64 = make_evaluator(low2, device=dev, dtype=torch.float64, kernel=False)(vals)
-    kernel_fn.launches = 0
+    level_fn.launches = 0
     mixed = make_evaluator(low2, device=dev, dtype=torch.bfloat16,
                            acc_dtype=torch.float32)(vals.astype(np.float32))
     torch.cuda.synchronize()
@@ -500,9 +724,9 @@ def main() -> None:
     rel = (mixed.double() - f64).abs() / denom
     med, top = rel.median().item(), rel.max().item()
     print(f"graph: order-2 bucketed bf16 storage / f32 accumulation vs f64, batch 16: "
-          f"{kernel_fn.launches} kernel launches, median rel {med:.3e} (limit 1e-2), max "
+          f"{level_fn.launches} kernel launches, median rel {med:.3e} (limit 1e-2), max "
           f"{top:.3e} (limit 0.5)", flush=True)
-    if mixed.dtype != torch.float32 or kernel_fn.launches == 0 or not (med < 1e-2 and
+    if mixed.dtype != torch.float32 or level_fn.launches == 0 or not (med < 1e-2 and
                                                                       top < 0.5):
         fail("bf16/f32 graph phase outside tests/test_lowering.py's bounds")
     vals32 = vals.astype(np.float32)
@@ -516,6 +740,8 @@ def main() -> None:
     if not acc_err <= PAIR_GRAPH_TOL < control:
         fail("bf16/f32 graph phase: kernel outside, or control inside, the bf16/f32 plain "
              "bound")
+
+    phase("dtype pairs")
 
     # -- 7. the row-access probe kernels against their plain versions
     def probe_rand_rows(S):
@@ -585,6 +811,50 @@ def main() -> None:
         f"{name} {k * 1e3:.2f} vs {p * 1e3:.2f} us" for name, (k, p) in probe_dev.items())
         + f"  [{smi}]", flush=True)
 
+    # the one PyTorch call that computes a probe's function, where there is
+    # one, timed as main() times the kernel (pm.median_ms: per call, the
+    # host's launch work included).  acc (a gather and a sum), dynwrite and
+    # dmadyn_dst (a fill and a copy) take two calls each: none
+    r_p = [int(r) for r in rows_p.tolist()]
+    blk = w_p[:pm.BLOCK_ROWS]
+    sel = (torch.arange(pm.BLOCK_ROWS, device=dev)[None, :]
+           == r_p[0] + torch.arange(8, device=dev)[:, None]).float()
+    take_idx = torch.tensor(pm.TAKE_ROWS, device=dev)
+    g8 = 8 * (r_p[0] // 8)
+    library_calls = {
+        "dma8": lambda: w_p[r_p[0]:r_p[0] + 8].clone(),
+        "dmagrp": lambda: w_p[g8:g8 + 8].clone(),
+        "vmemrow": lambda: blk[r_p[0]:r_p[0] + 1].clone(),
+        "vmem8": lambda: blk[r_p[0]:r_p[0] + 8].clone(),
+        "onehot": lambda: torch.matmul(sel, blk),
+        "take": lambda: torch.index_select(blk, 0, take_idx)}
+    probe_lib = {}
+    for _, case, _ in pm.CASES:
+        name = case.__name__[len("case_"):]
+        call = library_calls.get(name)
+        if call is not None and not torch.equal(call(), case(w_p, rows_p)):
+            fail(f"probe {name}: its library call gives another result than the kernel")
+        probe_lib[name] = median_ms(call) if call is not None else None
+    # bound: the rows a probe must read and write, once each, over the memory
+    # rate; for onehot also its 2 * 8 * 256 * B operations over the TF32 rate
+    row_bytes = w_p.shape[1] * 4
+    probe_rows = {"dma8": 16, "dmagrp": 16, "vmemrow": 2, "vmem8": 16, "acc": 5, "onehot": 16,
+                  "dynwrite": 9, "dmadyn_dst": 16, "take": 16}
+    probe_bound = {}
+    for name, n_rows in probe_rows.items():
+        t_bytes = n_rows * row_bytes / HBM_BYTES_PER_S
+        t_ops = (2 * 8 * pm.BLOCK_ROWS * w_p.shape[1] / PEAK_FLOPS["tf32"]
+                 if name == "onehot" else n_rows * w_p.shape[1] / PEAK_FLOPS["float32"])
+        probe_bound[name] = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+                             else "operations")
+    print("probe library call per call, and bound: " + ", ".join(
+        f"{name} {'none' if probe_lib[name] is None else format(1e3 * probe_lib[name], '.2f') + ' us'}"
+        f" / {1e6 * probe_bound[name][0]:.1f} ns ({probe_bound[name][1]})"
+        for name in PROBE_LINE) + "; a launch's floor, not the bound, is what the probes meet"
+        + f"  [{smi}]", flush=True)
+
+    phase("probes")
+
     # -- 9. gather strategies and the streaming roofline
     kernel_fn.launches = 0
     gather = probe_gather.run()
@@ -592,18 +862,31 @@ def main() -> None:
         fail(f"probe_gather: bucket kernel check {gather['bucket_ok']}, "
              f"{kernel_fn.launches} launches")
 
+    phase("gather probe")
+
     by_name = {res["case"].__name__[len("case_"):]: res for res in results}
+    fused, bucketed = times["fused"], times["bucketed"]
     report = {"kernels": [{
         "name": "bucket_gather_reduce", "route": "cuda",
         "source": "feynmandiagram_tpu_torch/csrc/bucket_gather_reduce.cu",
         "replaces": "feynmandiagram_tpu/ops/kernels.py:82",
-        "launches": launches["fused"], "max_abs_err": main_err,
-        "ms": times["fused"][0], "plain_ms": times["fused"][1]}] + [{
+        "launches": launches["fused"], "launches_per_pass": launches["fused"],
+        "max_abs_err": max(main_err, level_err["plain"]),
+        "max_abs_err_kahan": level_err["kahan"],
+        "ms": fused["level_ms"], "plain_ms": fused["plain_ms"],
+        "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"], "library_ms": None,
+        "bucket_by_bucket_ms": fused["bucket_ms"],
+        "bucketed": {"launches_per_pass": launches["bucketed"], "ms": bucketed["level_ms"],
+                     "plain_ms": bucketed["plain_ms"], "bound_ms": bucketed["bound_ms"],
+                     "bound_by": bucketed["bound_by"], "library_ms": bucketed["library_ms"],
+                     "bucket_by_bucket_ms": bucketed["bucket_ms"]}}] + [{
             "name": f"probe_{name}", "route": "cuda",
             "source": "feynmandiagram_tpu_torch/csrc/row_probes.cu",
             "replaces": f"benchmarks/probe_mosaic_caps.py:{PROBE_LINE[name]}",
             "launches": probe_launches[name], "max_abs_err": probe_err[name],
-            "ms": by_name[name]["ms"], "plain_ms": by_name[name]["plain_ms"]}
+            "ms": by_name[name]["ms"], "plain_ms": by_name[name]["plain_ms"],
+            "bound_ms": probe_bound[name][0], "bound_by": probe_bound[name][1],
+            "library_ms": probe_lib[name]}
             for name in PROBE_LINE]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

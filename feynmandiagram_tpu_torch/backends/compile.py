@@ -18,8 +18,9 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from .._host import (FusedBucket, Graph, LevelPlan, LoweredGraph, PowerPlan,
-                     ProdPlan, SumBucket, SumPlan, lower)
+from ..computational_graph import Graph
+from ..ops.lowering import (FusedBucket, LevelPlan, LoweredGraph, PowerPlan,
+                            ProdPlan, SumBucket, SumPlan, lower)
 from ..ops.dtypes import default_device, default_dtype
 from ..ops.evaluator import make_evaluator
 from ..ops.leaf_eval import LeafTables, leaf_tables_from_lowered, make_leaf_evaluator

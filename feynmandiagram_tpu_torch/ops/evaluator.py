@@ -7,14 +7,18 @@ reference's order: the CSR sum, the sum buckets, the fused buckets, the
 products, the powers.
 
 - ``SumPlan``: gather, scale, ``index_add_`` into the level's rows
-- ``SumBucket`` / ``FusedBucket``: the ``bucket_gather_reduce`` kernel
+- ``SumBucket`` / ``FusedBucket``: all of a level's buckets in one launch
+  of the gather-reduce kernel (``level_gather_reduce``)
 - ``ProdPlan`` / ``PowerPlan``: plain PyTorch (XLA ops in the reference)
 
 JAX's evaluator was functional (``dynamic_update_slice`` on an immutable
 buffer); this one writes each plan's rows of ``w`` in place.  That is safe
-because no bucket reads its own destination rows, which ``make_evaluator``
-checks once for every bucket, together with the bounds of every index (the
-reference relies on ``promise_in_bounds``; the kernel has no clamp).
+because no plan of a level reads a row that a plan of that level writes:
+``lower()`` frees a slot for reuse only when its last read lies in an
+earlier level, and a node reads only lower levels.  It is also why a
+level's buckets may run at once.  ``make_evaluator`` checks it once, with
+the bounds of every index (the reference relies on ``promise_in_bounds``;
+the kernel has no clamp).
 """
 from __future__ import annotations
 
@@ -24,29 +28,31 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .._host import LoweredGraph, lower
+from .lowering import LoweredGraph, lower
 from .dtypes import default_device, default_dtype
-from .kernels import bucket_gather_reduce, bucket_gather_reduce_plain, cuda_type_codes
-
-
-@dataclass
-class _Bucket:
-    start: int
-    idx: torch.Tensor        # [n_op, arity, count] int32
-    fac: torch.Tensor        # [arity, count]
+from .kernels import (LevelTables, cuda_type_codes, level_gather_reduce,
+                      level_gather_reduce_plain, pack_level)
 
 
 @dataclass
 class _Level:
     csr: Optional[tuple]     # (start, count, src, fac, seg)
-    buckets: List[_Bucket]   # sum buckets, then fused buckets
+    tables: Optional[LevelTables]   # sum buckets, then fused buckets, packed
     prods: List[tuple]       # (start, count, idx [arity, count], factor [count])
     pows: List[tuple]        # (n, start, count, src, factor)
 
 
+def level_buckets(lvl) -> list:
+    """The buckets ``(idx [n_op, arity, count], fac, start)`` of a
+    ``LevelPlan``: its sum buckets (``n_op`` 1), then its fused buckets."""
+    return ([(np.asarray(sb.idx)[None], np.asarray(sb.fac), sb.start)
+             for sb in lvl.sum_buckets]
+            + [(np.asarray(fb.idx), np.asarray(fb.fac), fb.start) for fb in lvl.fused])
+
+
 def check_lowered(lowered: LoweredGraph) -> None:
-    """Raise if any index of ``lowered`` is out of bounds or any bucket
-    reads its own destination rows."""
+    """Raise if any index of ``lowered`` is out of bounds, or any plan of a
+    level reads a row that a plan of the same level writes."""
     n = lowered.num_slots
 
     def in_bounds(what: str, a) -> None:
@@ -61,32 +67,31 @@ def check_lowered(lowered: LoweredGraph) -> None:
     in_bounds("root_slots", lowered.root_slots)
     in_bounds("const_slots", lowered.const_slots)
     for li, lvl in enumerate(lowered.levels):
+        plans = []   # (what, start, count, indices read)
         if lvl.sums is not None:
-            rows(f"level {li} sums", lvl.sums.start, lvl.sums.count)
-            in_bounds(f"level {li} sums", lvl.sums.edge_src)
+            plans.append((f"level {li} sums", lvl.sums.start, lvl.sums.count,
+                          lvl.sums.edge_src))
             seg = np.asarray(lvl.sums.edge_seg)
             if seg.size and (seg.min() < 0 or seg.max() >= lvl.sums.count):
                 raise ValueError(f"level {li} sums: segment out of range")
-        for kind, plans in (("sum bucket", lvl.sum_buckets), ("fused bucket", lvl.fused)):
-            for b in plans:
-                rows(f"level {li} {kind}", b.start, b.count)
-                in_bounds(f"level {li} {kind}", b.idx)
-                idx = np.asarray(b.idx)
-                if np.any((idx >= b.start) & (idx < b.start + b.count)):
-                    raise ValueError(f"level {li} {kind} at row {b.start} reads "
-                                     f"its own destination rows")
-        for p in lvl.prods:
-            rows(f"level {li} prod", p.start, p.count)
-            in_bounds(f"level {li} prod", p.idx)
-        for pw in lvl.pows:
-            rows(f"level {li} pow", pw.start, pw.count)
-            in_bounds(f"level {li} pow", pw.src)
+        plans += [(f"level {li} sum bucket", b.start, b.count, b.idx) for b in lvl.sum_buckets]
+        plans += [(f"level {li} fused bucket", b.start, b.count, b.idx) for b in lvl.fused]
+        plans += [(f"level {li} prod", p.start, p.count, p.idx) for p in lvl.prods]
+        plans += [(f"level {li} pow", pw.start, pw.count, pw.src) for pw in lvl.pows]
+        written = np.zeros(n, bool)
+        for what, start, count, read in plans:
+            rows(what, start, count)
+            in_bounds(what, read)
+            written[start:start + count] = True
+        for what, start, _, read in plans:
+            read = np.asarray(read)
+            if read.size and written[read].any():
+                raise ValueError(f"{what} at row {start} reads row "
+                                 f"{int(read[written[read]].flat[0])}, which level {li} "
+                                 f"writes")
 
 
 def _upload(lowered: LoweredGraph, device, fac_dtype) -> List[_Level]:
-    def i32(a) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
-
     def i64(a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a, np.int64), device=device)
 
@@ -99,12 +104,11 @@ def _upload(lowered: LoweredGraph, device, fac_dtype) -> List[_Level]:
         if lvl.sums is not None:
             s = lvl.sums
             csr = (s.start, s.count, i64(s.edge_src), f(s.edge_factor), i64(s.edge_seg))
-        buckets = [_Bucket(sb.start, i32(np.asarray(sb.idx)[None]), f(sb.fac))
-                   for sb in lvl.sum_buckets]
-        buckets += [_Bucket(fb.start, i32(fb.idx), f(fb.fac)) for fb in lvl.fused]
+        buckets = level_buckets(lvl)
+        tables = pack_level(buckets, device, fac_dtype) if buckets else None
         prods = [(p.start, p.count, i64(p.idx), f(p.factor)) for p in lvl.prods]
         pows = [(pw.n, pw.start, pw.count, i64(pw.src), f(pw.factor)) for pw in lvl.pows]
-        levels.append(_Level(csr, buckets, prods, pows))
+        levels.append(_Level(csr, tables, prods, pows))
     return levels
 
 
@@ -119,7 +123,7 @@ def _eval_levels(levels: List[_Level], w: torch.Tensor, acc_dtype=None,
     ``kernel=False`` runs the buckets through the plain version on any
     device (the reference the kernel is checked against)."""
     a = acc_dtype or w.dtype
-    bucket_op = bucket_gather_reduce if kernel else bucket_gather_reduce_plain
+    level_op = level_gather_reduce if kernel else level_gather_reduce_plain
     for lvl in levels:
         if lvl.csr is not None:
             start, count, src, fac, seg = lvl.csr
@@ -127,9 +131,9 @@ def _eval_levels(levels: List[_Level], w: torch.Tensor, acc_dtype=None,
             block = torch.zeros((count, w.shape[1]), dtype=a, device=w.device)
             block.index_add_(0, seg, contrib)
             w[start:start + count] = block.to(w.dtype)
-        for b in lvl.buckets:
-            bucket_op(w, b.idx, b.fac, b.start, compensated=compensated,
-                      acc_dtype=acc_dtype, chunk_rows=chunk_rows)
+        if lvl.tables is not None:
+            level_op(w, lvl.tables, compensated=compensated, acc_dtype=acc_dtype,
+                     chunk_rows=chunk_rows)
         for start, count, idx, factor in lvl.prods:
             block = w[idx[0]].to(a)
             for k in range(1, idx.shape[0]):

@@ -20,7 +20,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from .._host import BareGreenId, BareInteractionId
+from ..frontends import BareGreenId, BareInteractionId
 from ..models.free_fermion import green_derive_tower
 from ..models.yukawa import interaction_derive
 from .dtypes import default_device, default_dtype

@@ -1,7 +1,10 @@
-"""The port's whole slice against the JAX package, in float64:
+"""The port's whole slice against the JAX package, in float64: each package
+generates, lowers and evaluates with its own host pipeline.
 ``compile_evaluator`` on order-3 Gamma4, artifacts carried across packages,
-a run with jax blocked from import, and the Monte-Carlo protocol."""
+a run with jax and the JAX package blocked from import, the device default,
+and the Monte-Carlo protocol."""
 import os
+import re
 import subprocess
 import sys
 
@@ -11,10 +14,6 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from feynmandiagram_tpu.backends import compile as jax_compile  # noqa: E402
-from feynmandiagram_tpu.computational_graph import optimize_inplace  # noqa: E402
-from feynmandiagram_tpu.frontends import ChargeCharge, Instant, NoHartree  # noqa: E402
-from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,  # noqa: E402
-                                                  SigmaDiag, Ver4Diag, sigma, vertex4)
 from feynmandiagram_tpu.ops.evaluator import make_evaluator as jax_make_evaluator  # noqa: E402
 from feynmandiagram_tpu.ops.leaf_eval import make_leaf_evaluator as jax_leaf  # noqa: E402
 from feynmandiagram_tpu_torch.backends import compile as port  # noqa: E402
@@ -22,28 +21,20 @@ from feynmandiagram_tpu_torch.mc import mc_run, mc_samples_per_s  # noqa: E402
 from feynmandiagram_tpu_torch.ops.evaluator import make_evaluator  # noqa: E402
 from feynmandiagram_tpu_torch.ops.leaf_eval import make_leaf_evaluator  # noqa: E402
 
+from test_torch_host import PORT, REF, generate  # noqa: E402
+
 BETA, KF, LAM = 0.5, 1.919, 1.0
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _vertex4(order):
-    para = DiagPara(type=Ver4Diag, innerLoopNum=order, hasTau=True,
-                    filter=(NoHartree,),
-                    interaction=(Interaction(ChargeCharge, Instant),))
-    roots = [r["diagram"] for r in vertex4(para)]
-    optimize_inplace(roots, level=1)
-    return roots, para
+    """Order-``order`` Gamma4 from each package: (JAX roots, port roots, para)."""
+    roots, para = generate(REF, "vertex4", order)
+    return roots, generate(PORT, "vertex4", order)[0], para
 
 
-def _sigma2():
-    para = DiagPara(type=SigmaDiag, innerLoopNum=2, hasTau=True,
-                    filter=(NoHartree,),
-                    interaction=(Interaction(ChargeCharge, Instant),))
-    extK = np.zeros(para.totalLoopNum)
-    extK[0] = 1.0
-    roots = [r["diagram"] for r in sigma(para, extK, False)]
-    optimize_inplace(roots)
-    return roots, para
+def _sigma2(pkg):
+    return generate(pkg, "sigma", 2, level=0)
 
 
 def _samples(para, batch, seed):
@@ -63,13 +54,13 @@ def order3():
 
 @pytest.mark.parametrize("sum_mode", ["fused", "bucketed"])
 def test_compile_evaluator_order3_matches_jax(order3, sum_mode):
-    roots, para = order3
+    roots, port_roots, para = order3
     varK, varT = _samples(para, 16, 7)
     kw = dict(max_loop_num=para.totalLoopNum, beta=BETA, kF=KF, lam=LAM,
               sum_mode=sum_mode)
     expected = np.asarray(jax_compile.compile_evaluator(
         roots, dtype=np.float64, layout="flat", **kw)(varK, varT))
-    compiled = port.compile_evaluator(roots, device="cpu", dtype=torch.float64, **kw)
+    compiled = port.compile_evaluator(port_roots, device="cpu", dtype=torch.float64, **kw)
     got = compiled(varK, varT)
     assert got.shape == expected.shape and got.dtype == torch.float64
     assert_close(got.numpy(), expected)
@@ -81,7 +72,7 @@ def test_compile_evaluator_order3_matches_jax(order3, sum_mode):
 def test_jax_artifact_evaluates_in_port(tmp_path, sum_mode):
     """Carrying state across: a .npz from the JAX package's export_artifact
     loads into the port and evaluates to the JAX values."""
-    roots, para = _sigma2()
+    roots, para = _sigma2(REF)
     path = str(tmp_path / f"sigma2_{sum_mode}.npz")
     jax_compile.export_artifact(path, roots, max_loop_num=para.totalLoopNum,
                                 sum_mode=sum_mode)
@@ -99,7 +90,7 @@ def test_jax_artifact_evaluates_in_port(tmp_path, sum_mode):
 
 
 def test_port_artifact_loads_in_jax(tmp_path):
-    roots, para = _sigma2()
+    roots, para = _sigma2(PORT)
     path = str(tmp_path / "sigma2_port.npz")
     port.export_artifact(path, roots, max_loop_num=para.totalLoopNum, cse=True)
     lowered_j, tables_j = jax_compile.load_artifact(path)
@@ -115,10 +106,10 @@ def test_port_artifact_loads_in_jax(tmp_path):
 
 
 def test_port_runs_with_jax_blocked(tmp_path):
-    """A fresh interpreter with jax blocked imports the port, generates,
-    lowers and evaluates order-2 Gamma4, imports and runs the two probe
-    modules on the CPU, and loads no jax module."""
-    roots, para = _vertex4(2)
+    """A fresh interpreter with jax and the JAX package blocked imports the
+    port, generates, lowers and evaluates order-2 Gamma4, imports and runs
+    the two probe modules on the CPU, and loads no module of either."""
+    roots, _, para = _vertex4(2)
     varK, varT = _samples(para, 8, 11)
     expected = np.asarray(jax_compile.compile_evaluator(
         roots, max_loop_num=para.totalLoopNum, beta=BETA, kF=KF, lam=LAM,
@@ -128,13 +119,17 @@ def test_port_runs_with_jax_blocked(tmp_path):
     script = f"""
 import sys
 sys.modules["jax"] = None
+sys.modules["feynmandiagram_tpu"] = None
 import numpy as np, torch
-from feynmandiagram_tpu_torch import _host as h
 from feynmandiagram_tpu_torch.backends import compile_evaluator
-para = h.DiagPara(type=h.Ver4Diag, innerLoopNum=2, hasTau=True, filter=(h.NoHartree,),
-                  interaction=(h.Interaction(h.ChargeCharge, h.Instant),))
-roots = [r["diagram"] for r in h.vertex4(para)]
-h.optimize_inplace(roots, level=1)
+from feynmandiagram_tpu_torch.computational_graph import optimize_inplace
+from feynmandiagram_tpu_torch.frontends import ChargeCharge, Instant, NoHartree
+from feynmandiagram_tpu_torch.frontends.parquet import (DiagPara, Interaction, Ver4Diag,
+                                                        vertex4)
+para = DiagPara(type=Ver4Diag, innerLoopNum=2, hasTau=True, filter=(NoHartree,),
+                interaction=(Interaction(ChargeCharge, Instant),))
+roots = [r["diagram"] for r in vertex4(para)]
+optimize_inplace(roots, level=1)
 c = compile_evaluator(roots, max_loop_num=para.totalLoopNum, beta={BETA}, kF={KF},
                       lam={LAM}, device="cpu", dtype=torch.float64)
 out = c(np.load({str(tmp_path / 'varK.npy')!r}), np.load({str(tmp_path / 'varT.npy')!r}))
@@ -144,9 +139,8 @@ assert probe_mosaic_caps.case_acc(*probe_mosaic_caps.probe_inputs("cpu"))[0, :2]
     == [2432, 2436]
 x = probe_gather.make_inputs("cpu", 64, 16, 64, 32, 8)
 assert probe_gather.gather_scale_sum(x["w"], x["idx"], x["fac"]).shape == (8, 16)
-loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax" and sys.modules[m])
-loaded += sorted(m for m in sys.modules if m.startswith("feynmandiagram_tpu.")
-                 and m.split(".")[1] in ("models", "backends", "parallel"))
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "feynmandiagram_tpu") and sys.modules[m])
 assert not loaded, loaded
 """
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -154,8 +148,49 @@ assert not loaded, loaded
     assert_close(np.load(tmp_path / "out.npy"), expected)
 
 
+def test_default_device_raises_without_cuda():
+    """No entry point carries on on the CPU unasked: without a card,
+    ``make_evaluator``, ``make_leaf_evaluator`` and ``compile_evaluator``
+    with no device raise, and the same calls with ``device="cpu"`` work."""
+    from feynmandiagram_tpu_torch.ops.dtypes import default_device
+    if torch.cuda.is_available():
+        assert default_device().type == "cuda"
+        return
+    roots, para = _sigma2(PORT)
+    kw = dict(max_loop_num=para.totalLoopNum, beta=BETA, kF=KF, lam=LAM)
+    compiled = port.compile_evaluator(roots, device="cpu", **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        default_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_evaluator(compiled.lowered)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_leaf_evaluator(compiled.tables, beta=BETA, kF=KF, lam=LAM)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.compile_evaluator(roots, **kw)
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    """No ``.py`` of the port, and not ``chip_smoke.py``, imports
+    ``feynmandiagram_tpu`` or ``jax``; ``_host.py`` is gone."""
+    pattern = re.compile(
+        r"^\s*(from\s+(feynmandiagram_tpu|jax)(\.[\w.]*)?\s+import\b"
+        r"|import\s+(feynmandiagram_tpu|jax)(\.[\w.]*)?(\s|,|$))", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, PORT)):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 40
+    for path in files:
+        with open(path) as f:
+            hit = pattern.search(f.read())
+        assert hit is None, f"{os.path.relpath(path, REPO)}: {hit.group(0).strip()}"
+    assert pattern.search("from feynmandiagram_tpu.ops import lowering")
+    assert pattern.search("    import jax.numpy as jnp") and pattern.search("import jax")
+    assert not pattern.search("from feynmandiagram_tpu_torch.ops import lowering")
+    assert not os.path.exists(os.path.join(REPO, PORT, "_host.py"))
+
+
 def test_mc_protocol_on_cpu():
-    roots, para = _sigma2()
+    roots, para = _sigma2(PORT)
     compiled = port.compile_evaluator(roots, max_loop_num=para.totalLoopNum, beta=BETA,
                                       kF=KF, lam=LAM, device="cpu", dtype=torch.float64)
     n_roots = len(compiled.lowered.root_slots)

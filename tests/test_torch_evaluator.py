@@ -28,6 +28,7 @@ from feynmandiagram_tpu_torch.ops.evaluator import (check_lowered,  # noqa: E402
                                                     evaluate_graphs, make_evaluator)
 
 from test_lowering import random_dag  # noqa: E402
+from test_torch_host import PORT, generate, lower_with, to_port  # noqa: E402
 
 F64 = torch.float64
 
@@ -232,13 +233,14 @@ def test_compile_evaluator_f32_storage_f64_acc_matches_jax():
     para = DiagPara(type=Ver4Diag, innerLoopNum=2, hasTau=True, filter=(NoHartree,),
                     interaction=(Interaction(ChargeCharge, Instant),))
     roots = _gamma4(2)
+    port_roots = generate(PORT, "vertex4", 2)[0]
     rng = np.random.default_rng(7)
     varK = rng.standard_normal((3, para.totalLoopNum, 16))
     varT = rng.random((para.totalTauNum, 16)) * 0.5
     kw = dict(max_loop_num=para.totalLoopNum, beta=0.5, kF=1.919, lam=1.0)
     ref = np.asarray(jax_compile.compile_evaluator(
         roots, dtype=np.float32, acc_dtype=np.float64, layout="flat", **kw)(varK, varT))
-    got = compile_evaluator(roots, device="cpu", dtype=torch.float32,
+    got = compile_evaluator(port_roots, device="cpu", dtype=torch.float32,
                             acc_dtype=torch.float64, **kw)(varK, varT)
     assert got.dtype == torch.float64 and got.shape == ref.shape
     scale = np.abs(ref).max(axis=1, keepdims=True)
@@ -320,3 +322,86 @@ def test_check_lowered_accepts_real_lowerings():
     roots = _gamma4(2)
     for mode in ("csr", "bucketed", "fused"):
         check_lowered(lower(roots, leafmap_of(roots), sum_mode=mode, cse=True))
+
+
+# ---- one launch per level: the evaluator's level path and its premise
+
+@pytest.fixture(scope="module")
+def port_roots():
+    cache = {}
+
+    def get(order):
+        if order not in cache:
+            cache[order] = generate(PORT, "vertex4", order)[0]
+        return cache[order]
+
+    return get
+
+
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+@pytest.mark.parametrize("sum_mode", ["fused", "bucketed"])
+def test_check_lowered_accepts_orders_1_to_4(port_roots, order, sum_mode):
+    low = lower_with(PORT, port_roots(order), sum_mode=sum_mode, cse=True)
+    check_lowered(low)
+    assert sum(len(lvl.sum_buckets) + len(lvl.fused) for lvl in low.levels) > 0
+
+
+def _cross_read(low, kind):
+    """Make one plan of a level read a row that another plan of the same
+    level writes.  Returns False where ``low`` has no such pair."""
+    for lvl in low.levels:
+        buckets = list(lvl.sum_buckets) + list(lvl.fused)
+        if kind == "bucket_reads_bucket" and len(buckets) >= 2:
+            buckets[0].idx.reshape(-1)[0] = buckets[1].start + buckets[1].count - 1
+            return True
+        if kind == "prod_reads_bucket" and buckets and lvl.prods:
+            lvl.prods[0].idx.reshape(-1)[0] = buckets[0].start
+            return True
+    return False
+
+
+@pytest.mark.parametrize("kind,sum_mode", [("bucket_reads_bucket", "fused"),
+                                           ("bucket_reads_bucket", "bucketed"),
+                                           ("prod_reads_bucket", "bucketed")])
+def test_check_lowered_rejects_a_read_of_the_levels_own_rows(port_roots, kind, sum_mode):
+    low = copy.deepcopy(lower_with(PORT, port_roots(3), sum_mode=sum_mode, cse=True))
+    check_lowered(low)
+    assert _cross_read(low, kind)
+    with pytest.raises(ValueError, match="writes"):
+        check_lowered(low)
+    with pytest.raises(ValueError, match="writes"):
+        make_evaluator(low, device="cpu", dtype=F64)
+
+
+@pytest.mark.parametrize("order", [2, 3])
+@pytest.mark.parametrize("sum_mode", ["fused", "bucketed"])
+@pytest.mark.parametrize("compensated", [False, True])
+def test_level_path_equals_bucket_loop_and_jax(port_roots, order, sum_mode, compensated):
+    """The evaluator's level path on the port's own lowering: bit for bit
+    the bucket-by-bucket plain loop, and the JAX evaluator's values at rtol
+    1e-11 plus 1e-12 * max|ref| (sums taken in another order)."""
+    from feynmandiagram_tpu_torch.ops.evaluator import level_buckets
+    from feynmandiagram_tpu_torch.ops.kernels import bucket_gather_reduce_plain
+    low = lower_with(PORT, port_roots(order), sum_mode=sum_mode, cse=True)
+    nl = low.num_leaves - len(low.const_slots)
+    vals = np.random.default_rng(order).uniform(0.25, 4.0, (nl, 5))
+    got = port_eval(low, vals, return_all=True, compensated=compensated)
+    assert_close(got, jax_eval(low, vals, return_all=True, compensated=compensated))
+
+    w = torch.zeros((low.num_slots, 5), dtype=F64)
+    w[:nl] = torch.from_numpy(vals)
+    w[nl:nl + len(low.const_slots)] = torch.from_numpy(
+        np.asarray(low.const_values, np.float64))[:, None]
+    for lvl in low.levels:
+        assert lvl.sums is None and not lvl.pows
+        for idx, fac, start in level_buckets(lvl):
+            bucket_gather_reduce_plain(w, torch.from_numpy(np.ascontiguousarray(idx)),
+                                       torch.from_numpy(np.ascontiguousarray(fac)), start,
+                                       compensated=compensated)
+        for p in lvl.prods:
+            block = w[torch.from_numpy(np.asarray(p.idx[0], np.int64))]
+            for k in range(1, p.idx.shape[0]):
+                block = block * w[torch.from_numpy(np.asarray(p.idx[k], np.int64))]
+            w[p.start:p.start + p.count] = block * torch.from_numpy(
+                np.asarray(p.factor, np.float64))[:, None]
+    np.testing.assert_array_equal(got, w.numpy())

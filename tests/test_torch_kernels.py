@@ -241,3 +241,194 @@ def test_wider_acc_rounds_once_and_storage_acc_does_not(storage, acc, mant_bits,
                              compensated=compensated, acc_dtype=a)
         excess[a] = _rounding_excess(wk[S:].double().numpy(), exact, size, mant_bits, rtol)
     assert excess[acc] <= 1.0 < excess[None]
+
+
+# ---- one launch per level: the packed tables and the level wrapper
+
+from feynmandiagram_tpu_torch.ops.kernels import (LevelTables,  # noqa: E402
+                                                  level_gather_reduce,
+                                                  level_gather_reduce_plain, pack_level,
+                                                  unpack_level)
+
+
+def _level_case(seed, S=40, n_buckets=7):
+    """A level of random buckets: mixed n_op and arity, counts that are not
+    multiples of the kernel's 8-row tile, destination rows after the S
+    source rows.  Returns (buckets, total rows of w)."""
+    rng = np.random.default_rng(seed)
+    buckets, start = [], S
+    for _ in range(n_buckets):
+        n_op, arity = int(rng.integers(1, 5)), int(rng.choice([1, 2, 3, 7, 16, 40]))
+        count = int(rng.choice([1, 5, 8, 13, 24]))
+        idx = rng.integers(0, S, (n_op, arity, count)).astype(np.int32)
+        fac = rng.choice([1.0, -1.0, 0.5, -2.0, 0.0], (arity, count))
+        buckets.append((idx, fac, start))
+        start += count + int(rng.integers(0, 3))     # gaps between destination ranges
+    return buckets, start
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_packed_level_unpacks_to_its_buckets(seed):
+    buckets, _ = _level_case(seed)
+    tables = pack_level(buckets, "cpu", F64)
+    assert isinstance(tables, LevelTables)
+    assert tables.idx.dtype == torch.int32 and tables.fac.dtype == F64
+    assert sorted(tables.records) == sorted(kernels.RECORD_WIDTHS)
+    assert tables.desc.shape == (len(buckets), len(kernels.DESC_FIELDS))
+    got = unpack_level(tables)
+    assert len(got) == len(buckets)
+    for (idx, fac, start), (gi, gf, gs) in zip(buckets, got):
+        assert gs == start and tuple(gi.shape) == idx.shape
+        np.testing.assert_array_equal(gi.numpy(), idx)
+        np.testing.assert_array_equal(gf.numpy(), fac)
+    assert tables.idx.numel() == sum(b[0].size for b in buckets)
+    assert tables.row_end == max(s + i.shape[2] for i, _, s in buckets)
+    assert tables.rows_touched == (len(np.unique(np.concatenate(
+        [i.ravel() for i, _, _ in buckets]))) + sum(i.shape[2] for i, _, _ in buckets))
+
+
+def _emulate(w, tables, widest, group_cols, vec):
+    """What the kernel's blocks do, item by item, read from the device
+    tables alone: the item order and the record, span and pool addressing of
+    csrc/bucket_gather_reduce.cu, with float64 sums.  Returns the new buffer
+    and how often each element of it was written."""
+    rec_table = tables.records[widest].numpy()
+    pool_i, pool_f = tables.idx.numpy(), tables.fac.numpy()
+    batch = w.shape[1]
+    piece = 32 * vec
+    item_cols = kernels.ITEM_PIECES * piece
+    items = -(-batch // item_cols)
+    per_group = min(max(group_cols // item_cols, 1), items)
+    groups = -(-items // per_group)
+    out, hits = w.copy(), np.zeros(w.shape, int)
+    for item in range(groups * per_group * len(rec_table)):
+        group, rest = divmod(item, per_group * len(rec_table))
+        rec, k_item = divmod(rest, per_group)
+        dst, rows, arity, n_op, io, fo, count, span = rec_table[rec].tolist()
+        col0 = (group * per_group + k_item) * item_cols + (span & 0xffff) * piece
+        cols = slice(col0, min(col0 + (span >> 16) * piece, batch))
+        if col0 >= batch:
+            continue
+        for r in range(rows):
+            acc = 0.0
+            for a in range(arity):
+                term = pool_f[fo + a * count + r]
+                for k in range(n_op):
+                    term = term * w[pool_i[io + (k * arity + a) * count + r], cols]
+                acc = acc + term
+            out[dst + r, cols] = acc
+            hits[dst + r, cols] += 1
+    return out, hits
+
+
+@pytest.mark.parametrize("widest", kernels.RECORD_WIDTHS)
+@pytest.mark.parametrize("batch,vec,group_cols", [(300, 4, 1), (2100, 4, 2048), (77, 1, 256),
+                                                  (1030, 2, 10 ** 6)])
+def test_tile_records_cover_every_output_once(widest, batch, vec, group_cols):
+    """Walking the device tables as the kernel does writes every output
+    element of the level exactly once, nothing else, with the plain values:
+    for every record width, ragged batches, one and many column groups."""
+    buckets, rows = _level_case(4, S=12, n_buckets=5)
+    tables = pack_level(buckets, "cpu", F64)
+    w = np.random.default_rng(1).uniform(0.5, 1.5, (rows, batch))
+    out, hits = _emulate(w, tables, widest, group_cols, vec)
+    expected = np.zeros(w.shape, int)
+    for idx, _, start in buckets:
+        expected[start:start + idx.shape[2]] = 1
+    np.testing.assert_array_equal(hits, expected)
+    ref = torch.from_numpy(w.copy())
+    level_gather_reduce_plain(ref, tables)
+    # float64 sums of up to 40 terms of size <= ~50, taken in another order
+    np.testing.assert_allclose(out, ref.numpy(), rtol=1e-12, atol=1e-11)
+    # records: a row tile's records are as wide as its arity allows; the
+    # tiles run from the longest terms to the shortest
+    t = dict(zip(kernels.TILE_FIELDS, tables.records[widest].numpy().T))
+    assert (t["span"] >> 16).tolist() == [kernels._record_width(a, widest)
+                                          for a in t["arity"].tolist()]
+    assert kernels._record_width(1, widest) == widest and kernels._record_width(40, widest) == 1
+    cost = t["n_op"] * t["arity"]
+    assert np.all(cost[:-1] >= cost[1:])
+
+
+@pytest.mark.parametrize("batch,dtype", [(4096, F32), (250, F32), (16384, BF16), (512, F64)])
+def test_record_width_leaves_enough_blocks(batch, dtype):
+    """The wrappers take the widest records that leave TARGET_BLOCKS blocks,
+    and one-piece records where no width does; a geometry names its own."""
+    buckets, rows = _level_case(4)
+    tables = pack_level(buckets, "cpu", F64)
+    w = torch.empty((rows, batch), dtype=dtype)
+    across = kernels._items_across(w)
+    assert across == -(-batch * w.element_size() // 4096)
+    table = tables.records_for(w)
+    widths = [k for k in kernels.RECORD_WIDTHS
+              if tables.records[k].shape[0] * across >= kernels.TARGET_BLOCKS]
+    assert table is tables.records[max(widths) if widths else 1]
+    assert tables.records_for(w, (2, 2 ** 20)) is tables.records[2]
+    for arity, count in ((1, 4920), (2, 8), (16, 96)):
+        got = kernels._bucket_pieces(w, arity, count, None)
+        assert got in kernels.RECORD_WIDTHS and (arity < 16 or got == 1)
+        assert kernels._bucket_pieces(w, arity, count, (4, 1)) == kernels._record_width(arity, 4)
+    assert kernels._group_cols(w, 1000, None) == max(
+        kernels.L2_GROUP_BYTES // (1000 * w.element_size()), 1)
+    assert kernels._group_cols(w, 10 ** 9, None) == 1
+
+
+@pytest.mark.parametrize("bad", ["empty", "n_op_5", "fac_shape", "no_rows", "negative_start"])
+def test_pack_level_rejects(bad):
+    idx, fac = np.zeros((2, 3, 4), np.int32), np.ones((3, 4))
+    buckets = {"empty": [], "n_op_5": [(np.zeros((5, 3, 4), np.int32), fac, 0)],
+               "fac_shape": [(idx, np.ones((4, 3)), 0)],
+               "no_rows": [(np.zeros((2, 3, 0), np.int32), np.ones((3, 0)), 0)],
+               "negative_start": [(idx, fac, -1)]}[bad]
+    with pytest.raises(ValueError):
+        pack_level(buckets, "cpu", F64)
+
+
+@pytest.mark.parametrize("batch", [16, 13])          # 13: a ragged batch
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("storage,acc", [(F64, None), (F32, None), (F32, F64), (BF16, F32)])
+def test_level_plain_equals_bucket_loop_bit_for_bit(storage, acc, compensated, batch):
+    """The level version, which reads its buckets back from the packed
+    tables, against the plain bucket version called bucket by bucket on the
+    original arrays, with ``max|diff| = 0``, and through the CPU wrapper."""
+    buckets, rows = _level_case(5)
+    rng = np.random.default_rng(6)
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, (rows, batch))).to(storage)
+    fac_dtype = acc or storage
+    kw = dict(compensated=compensated, acc_dtype=acc)
+    ref = w.clone()
+    for idx, fac, start in buckets:
+        bucket_gather_reduce_plain(ref, torch.from_numpy(idx),
+                                   torch.from_numpy(fac).to(fac_dtype), start, **kw)
+    tables = pack_level(buckets, "cpu", fac_dtype)
+    got, via_wrapper = w.clone(), w.clone()
+    level_gather_reduce_plain(got, tables, **kw)
+    level_gather_reduce(via_wrapper, tables, **kw)
+    assert not torch.equal(ref, w)
+    assert torch.equal(got, ref) and torch.equal(via_wrapper, ref)
+    # rows outside every destination range are untouched
+    written = np.zeros(rows, bool)
+    for idx, _, start in buckets:
+        written[start:start + idx.shape[2]] = True
+    assert torch.equal(got[~torch.from_numpy(written)], w[~torch.from_numpy(written)])
+
+
+def test_level_wrapper_on_cpu_counts_no_launch_and_other_devices_raise():
+    buckets, rows = _level_case(7)
+    tables = pack_level(buckets, "cpu", F64)
+    before = level_gather_reduce.launches
+    level_gather_reduce(torch.ones((rows, 4), dtype=F64), tables)
+    assert level_gather_reduce.launches == before
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        level_gather_reduce(torch.ones((rows, 4), dtype=F64, device="meta"), tables)
+
+
+def test_level_order_is_free():
+    """The level's buckets read no destination row of the level, so any
+    order of them gives the same buffer: the premise of one launch."""
+    buckets, rows = _level_case(8)
+    w = torch.from_numpy(np.random.default_rng(9).uniform(0.5, 1.5, (rows, 6)))
+    a, b = w.clone(), w.clone()
+    level_gather_reduce_plain(a, pack_level(buckets, "cpu", F64))
+    level_gather_reduce_plain(b, pack_level(buckets[::-1], "cpu", F64))
+    assert torch.equal(a, b)

@@ -14,9 +14,13 @@ from feynmandiagram_tpu.frontends.parquet import (DiagPara, Interaction,  # noqa
 from feynmandiagram_tpu.ops import leaf_eval as jax_leaf  # noqa: E402
 from feynmandiagram_tpu.ops.lowering import lower  # noqa: E402
 from feynmandiagram_tpu.utility import taylorAD  # noqa: E402
+from feynmandiagram_tpu_torch.backends.compile import (  # noqa: E402
+    leaf_graphs_of as port_leaf_graphs_of)
 from feynmandiagram_tpu_torch.ops.leaf_eval import (LeafTables,  # noqa: E402
                                                     leaf_tables_from_lowered,
                                                     make_leaf_evaluator)
+
+from test_torch_host import to_port  # noqa: E402
 
 BETA, KF, LAM = 0.5, 1.919, 1.0
 FIELDS = ["leaf_type", "g_order", "v_order", "tau_in", "tau_out", "loop_idx",
@@ -58,7 +62,8 @@ def case(request):
     roots, max_loop, n_tau = CASES[request.param]()
     lowered = lower(roots, leafmap_of(roots), sum_mode="fused", cse=True)
     jt = jax_leaf.leaf_tables_from_lowered(lowered, leaf_graphs_of(roots), max_loop)
-    pt = leaf_tables_from_lowered(lowered, leaf_graphs_of(roots), max_loop)
+    # the port reads its own graph classes: the same graphs, ids kept
+    pt = leaf_tables_from_lowered(lowered, port_leaf_graphs_of(to_port(roots)), max_loop)
     return jt, pt, max_loop, n_tau
 
 
