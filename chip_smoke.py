@@ -40,11 +40,17 @@ output line or more each:
    path.  Each bound that tells the accumulation type is shown to reject a
    control, the plain version accumulating in the storage type;
 7. each of the nine row-access probe kernels against its plain version, on
-   the JAX script's data and on random data;
+   the JAX script's data and on random data; the two slice kernels
+   (vmemrow, vmem8) and their TMA variants also at every edge of the
+   start's clamp, on blocks shorter than 256 rows and at widths from one
+   16-byte piece to 16384 columns;
 8. the probe path: ``benchmarks.probe_mosaic_caps.main()`` with every probe
-   count at 0 before it, its output against the JAX script's values, and
-   the one PyTorch call that computes a probe's function, where there is
-   one, timed beside it;
+   count at 0 before it, its output against the JAX script's values; then
+   every probe's kernel, plain version and, where there is one, the one
+   PyTorch call that computes its function, each on two clocks: device time
+   (the profiler's busy time) and per-call time (CUDA events around one
+   call on an idle stream, the host's launch work included); the two slice
+   kernels beside their TMA variants on the device clock;
 9. ``benchmarks.probe_gather.run()``: the streaming roofline and the
    gather strategies at the JAX script's shapes, the bucket kernel among
    them.
@@ -91,6 +97,7 @@ GEOMETRIES = (None, (4, 24 * M), (2, 24 * M), (1, 24 * M), (4, 6 * M), (4, 1024 
 PROBE_FIRST = {"dma8": [704, 705], "dmagrp": [192, 193], "vmemrow": [704, 705],
                "vmem8": [704, 705], "acc": [2432, 2436], "onehot": [704, 705],
                "dynwrite": [0, 0], "dmadyn_dst": [632, 633], "take": [536, 537]}
+BULK_CHUNKS = (256, 1024, 4096, 16384)   # bytes a block of the TMA slice variants moves
 PROBE_LINE = {"dma8": 39, "dmagrp": 61, "vmemrow": 82, "vmem8": 100, "acc": 122,
               "onehot": 143, "dynwrite": 162, "dmadyn_dst": 185, "take": 205}
 
@@ -789,6 +796,36 @@ def main() -> None:
             continue
         fail(f"probe {name}: an out-of-range source {r} did not raise")
     print("probe: out-of-range copy sources raise (dma8, dmagrp, dmadyn_dst)", flush=True)
+    # the two slice kernels and their TMA variants: every edge of the clamp,
+    # blocks of fewer than 256 rows, widths from one 16-byte piece up
+    slices = ((1, pm.case_vmemrow, pm.case_vmemrow_bulk, pm.case_vmemrow_plain),
+              (8, pm.case_vmem8, pm.case_vmem8_bulk, pm.case_vmem8_plain))
+    n_edge, chunk_bytes = 0, pm.BULK_CHUNK_BYTES
+    for S in (8, 100, 256, 300):
+        k = min(pm.BLOCK_ROWS, S)
+        for B in (4, 100, 512, 4096, 16384):
+            wr = rand_w(S, B, torch.float32)
+            for size, case, bulk, plain in slices:
+                for r in (k - size, k - size + 1, k, -1, -k, -k - 1, 2 ** 31 - 1, -2 ** 31):
+                    ref = plain(wr, rows_t((r,)))
+                    for fn in (case, bulk):
+                        got = fn(wr, rows_t((r,)))
+                        if got.shape != ref.shape or not torch.equal(got, ref):
+                            fail(f"probe {fn.__name__} on {S}x{B}, start {r}: not the plain "
+                                 f"version's rows")
+                    n_edge += 1
+    for chunk in BULK_CHUNKS:   # a last chunk shorter than the others, and one chunk for all
+        pm.BULK_CHUNK_BYTES = chunk
+        for B in (100, 4096):
+            wr = rand_w(300, B, torch.float32)
+            for _, _, bulk, plain in slices:
+                if not torch.equal(bulk(wr, rows_t((77,))), plain(wr, rows_t((77,)))):
+                    fail(f"probe {bulk.__name__}, chunks of {chunk} bytes, B {B}: not the plain "
+                         f"version's rows")
+    pm.BULK_CHUNK_BYTES = chunk_bytes
+    print(f"probe: vmemrow, vmem8 and their TMA variants = plain, exact, on {n_edge} cases: the "
+          f"clamp's edges x S 8, 100, 256, 300 x B 4 to 16384; the TMA variants also in chunks "
+          f"of {BULK_CHUNKS} bytes", flush=True)
 
     # -- 8. the probe path, counts from 0
     for _, case, _ in pm.CASES:
@@ -801,20 +838,9 @@ def main() -> None:
             fail(f"probe path: {name} ok={res['ok']} first={res.get('first')} "
                  f"launches={probe_launches[name]}")
     print(f"probe path: all nine cases OK, launches {probe_launches}", flush=True)
-    # device time alone, beside main()'s per-call event times that include
-    # the host's launch work
-    probe_dev = {}
-    for _, case, plain in pm.CASES:
-        probe_dev[case.__name__[len("case_"):]] = (
-            busy_ms(lambda: case(w_p, rows_p), n=20), busy_ms(lambda: plain(w_p, rows_p), n=20))
-    print("probe device time per call, kernel vs plain: " + ", ".join(
-        f"{name} {k * 1e3:.2f} vs {p * 1e3:.2f} us" for name, (k, p) in probe_dev.items())
-        + f"  [{smi}]", flush=True)
-
     # the one PyTorch call that computes a probe's function, where there is
-    # one, timed as main() times the kernel (pm.median_ms: per call, the
-    # host's launch work included).  acc (a gather and a sum), dynwrite and
-    # dmadyn_dst (a fill and a copy) take two calls each: none
+    # one.  acc (a gather and a sum), dynwrite and dmadyn_dst (a fill and a
+    # copy) take two calls each: none
     r_p = [int(r) for r in rows_p.tolist()]
     blk = w_p[:pm.BLOCK_ROWS]
     sel = (torch.arange(pm.BLOCK_ROWS, device=dev)[None, :]
@@ -828,13 +854,55 @@ def main() -> None:
         "vmem8": lambda: blk[r_p[0]:r_p[0] + 8].clone(),
         "onehot": lambda: torch.matmul(sel, blk),
         "take": lambda: torch.index_select(blk, 0, take_idx)}
-    probe_lib = {}
-    for _, case, _ in pm.CASES:
+    def per_call_ms(fns, rounds=2):
+        """median_ms of each of fns (events around one call on an idle
+        stream, so mostly the host's launch work), taken in turns there and
+        back, ``rounds`` times; the median of each one's readings."""
+        seen = [[] for _ in fns]
+        for _ in range(rounds):
+            for k in [*range(len(fns)), *reversed(range(len(fns)))]:
+                seen[k].append(median_ms(fns[k]))
+        return [float(np.median(t)) for t in seen]
+
+    # kernel, plain and library call on one clock, twice over: device time
+    # (the profiler's busy time per call) and per-call time
+    probe_dev, probe_call = {}, {}
+    for _, case, plain in pm.CASES:
         name = case.__name__[len("case_"):]
         call = library_calls.get(name)
         if call is not None and not torch.equal(call(), case(w_p, rows_p)):
             fail(f"probe {name}: its library call gives another result than the kernel")
-        probe_lib[name] = median_ms(call) if call is not None else None
+        fns = [lambda: case(w_p, rows_p), lambda: plain(w_p, rows_p)] + ([call] if call else [])
+        probe_dev[name] = ([busy_ms(fn, n=20) for fn in fns] + [None])[:3]
+        probe_call[name] = (per_call_ms(fns) + [None])[:3]
+
+    def us(t):
+        return "none" if t is None else f"{1e3 * t:.2f}"
+
+    print("probe device time per call, kernel / plain / library call, us: " + ", ".join(
+        f"{name} {' / '.join(map(us, probe_dev[name]))}" for name in PROBE_LINE)
+        + f"  [{smi}]", flush=True)
+    # the slice kernels beside the design they were chosen over: a TMA bulk
+    # load and bulk store through shared memory, a chunk a block
+    variants = []
+    for name, case, bulk in (("vmemrow", pm.case_vmemrow, pm.case_vmemrow_bulk),
+                             ("vmem8", pm.case_vmem8, pm.case_vmem8_bulk)):
+        bulk_us = []
+        for chunk in BULK_CHUNKS:
+            pm.BULK_CHUNK_BYTES = chunk
+            bulk_us.append(f"{chunk} B {us(busy_ms(lambda: bulk(w_p, rows_p), n=20))}")
+        # and 20 calls back to back behind a sleep kernel, their gaps included
+        plain = getattr(pm, f"case_{name}_plain")
+        queued = [queued_ms(fn, n=20) for fn in (lambda: case(w_p, rows_p),
+                                                 lambda: plain(w_p, rows_p),
+                                                 library_calls[name])]
+        variants.append(f"{name} load+store per thread {us(probe_dev[name][0])}, "
+                        f"{us(busy_ms(lambda: case(w_p, rows_p), n=20))}; TMA load + store in "
+                        f"chunks of " + ", ".join(bulk_us) + "; back to back kernel / plain / "
+                        f"library call {' / '.join(map(us, queued))}")
+    pm.BULK_CHUNK_BYTES = chunk_bytes
+    print("probe variants, device us per call: " + "; ".join(variants) + f"  [{smi}]",
+          flush=True)
     # bound: the rows a probe must read and write, once each, over the memory
     # rate; for onehot also its 2 * 8 * 256 * B operations over the TF32 rate
     row_bytes = w_p.shape[1] * 4
@@ -847,11 +915,13 @@ def main() -> None:
                  if name == "onehot" else n_rows * w_p.shape[1] / PEAK_FLOPS["float32"])
         probe_bound[name] = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
                              else "operations")
-    print("probe library call per call, and bound: " + ", ".join(
-        f"{name} {'none' if probe_lib[name] is None else format(1e3 * probe_lib[name], '.2f') + ' us'}"
-        f" / {1e6 * probe_bound[name][0]:.1f} ns ({probe_bound[name][1]})"
-        for name in PROBE_LINE) + "; a launch's floor, not the bound, is what the probes meet"
-        + f"  [{smi}]", flush=True)
+    print("probe per-call time (events around one call, the host's launch work included), "
+          "kernel / plain / library call, us, and bound: " + ", ".join(
+              f"{name} {' / '.join(map(us, probe_call[name]))}, "
+              f"{1e6 * probe_bound[name][0]:.1f} ns ({probe_bound[name][1]})"
+              for name in PROBE_LINE)
+          + "; a launch's floor, not the bound, is what the probes meet"
+          + f"  [{smi}]", flush=True)
 
     phase("probes")
 
@@ -864,7 +934,6 @@ def main() -> None:
 
     phase("gather probe")
 
-    by_name = {res["case"].__name__[len("case_"):]: res for res in results}
     fused, bucketed = times["fused"], times["bucketed"]
     report = {"kernels": [{
         "name": "bucket_gather_reduce", "route": "cuda",
@@ -884,9 +953,10 @@ def main() -> None:
             "source": "feynmandiagram_tpu_torch/csrc/row_probes.cu",
             "replaces": f"benchmarks/probe_mosaic_caps.py:{PROBE_LINE[name]}",
             "launches": probe_launches[name], "max_abs_err": probe_err[name],
-            "ms": by_name[name]["ms"], "plain_ms": by_name[name]["plain_ms"],
+            "ms": probe_call[name][0], "plain_ms": probe_call[name][1],
             "bound_ms": probe_bound[name][0], "bound_by": probe_bound[name][1],
-            "library_ms": probe_lib[name]}
+            "library_ms": probe_call[name][2], "device_ms": probe_dev[name][0],
+            "plain_device_ms": probe_dev[name][1], "library_device_ms": probe_dev[name][2]}
             for name in PROBE_LINE]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,6 +7,9 @@ sum of 4 rows of a block held in VMEM, a one-hot product on the matrix
 unit, a dynamic-row write, a copy to a dynamic destination, and a static
 ``take``.  Here each is a hand-written CUDA kernel of ``csrc/row_probes.cu``
 (the source says which TPU kernel each replaces and why it is built so).
+``case_vmemrow_bulk`` and ``case_vmem8_bulk`` compute what ``case_vmemrow``
+and ``case_vmem8`` do by the design that was timed against theirs, a TMA
+bulk load and bulk store through shared memory.
 
 For each case there is a wrapper ``case_<name>(w, rows)`` and a plain
 PyTorch version ``case_<name>_plain(w, rows)``.  ``w`` is a float32 ``[S,
@@ -46,12 +49,13 @@ ROWS = (17, 256, 1031, 9)
 BLOCK_ROWS = 256                      # the w[:256] block of the VMEM cases
 TAKE_ROWS = (3, 1, 4, 1, 5, 9, 2, 6)  # k_take's static row list
 SMEM_BYTES = 227 * 1024               # shared memory a block can have
+BULK_CHUNK_BYTES = 1024               # a block's share of a *_bulk copy (16 B to 32 KB)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # per entry fd_probe_<name>: the arguments between (w, out) and (B, stream)
 _ENTRY_ARGS = {"dma8": (_L,), "dmagrp": (_L,), "dmadyn_dst": (_L, _I),
-               "vmemrow": (_I, _I), "vmem8": (_I, _I), "acc": (_I,) * 5,
-               "onehot": (_I, _I), "dynwrite": (_I,), "take": ()}
+               "vmemrow": (_I, _I), "vmem8": (_I, _I), "vmem_bulk": (_I,) * 4,
+               "acc": (_I,) * 5, "onehot": (_I, _I), "dynwrite": (_I,), "take": ()}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -68,9 +72,9 @@ def probe_inputs(device, s: int = S, b: int = B) -> Tuple[torch.Tensor, torch.Te
 
 
 def _host_rows(rows: torch.Tensor) -> List[int]:
-    if rows.dim() != 1 or rows.numel() != 4 or rows.dtype != torch.int32:
+    if rows.shape != (4,) or rows.dtype != torch.int32:
         raise ValueError(f"rows must be 4 int32 values, got {rows.dtype} {tuple(rows.shape)}")
-    return [int(r) for r in rows.tolist()]
+    return rows.tolist()
 
 
 def _block(w: torch.Tensor) -> torch.Tensor:
@@ -181,7 +185,7 @@ def _args_dmadyn_dst(w, r):
 
 
 def _block_rows(w, least: int, what: str) -> int:
-    k = _block(w).shape[0]
+    k = min(BLOCK_ROWS, w.shape[0])
     if k < least:
         raise ValueError(f"{what}: needs {least} rows of w, has {k}")
     return k
@@ -193,6 +197,15 @@ def _args_vmemrow(w, r):
 
 def _args_vmem8(w, r):
     return (r[0], _block_rows(w, 8, "vmem8"))
+
+
+def _args_bulk(size: int, what: str) -> Callable:
+    def args(w, r):
+        chunk = BULK_CHUNK_BYTES
+        if chunk % 16 or not 16 <= chunk <= 32 * 1024:
+            raise ValueError(f"{what}: a chunk of {chunk} bytes is no multiple of 16 up to 32 KB")
+        return (r[0], _block_rows(w, size, what), size, chunk)
+    return args
 
 
 def _args_acc(w, r):
@@ -217,24 +230,48 @@ def _args_take(w, r):
     return ()
 
 
-def _wrapper(name: str, plain: Callable, out_rows: int, args: Callable) -> Callable:
+# the current stream's handle without a Stream object around it, where this
+# PyTorch has the call (a CUDA build)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream_handle(index: int) -> int:
+    """The handle of device ``index``'s current stream."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _wrapper(name: str, plain: Callable, out_rows: int, args: Callable,
+             entry: str = "") -> Callable:
+    """``case_<name>``: the checks, then the plain version on a CPU ``w`` or
+    the launch of ``fd_probe_<entry or name>`` on a CUDA ``w``.  The C entry
+    is looked up at the first launch and kept."""
+    launch = None
+
     def case(w: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-        if w.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"case_{name} runs on cuda or cpu tensors, not {w.device.type}")
+        nonlocal launch
+        device = w.device
+        if device.type != "cuda" and device.type != "cpu":
+            raise ValueError(f"case_{name} runs on cuda or cpu tensors, not {device.type}")
         if w.dim() != 2 or w.dtype != torch.float32 or not w.is_contiguous():
             raise ValueError(f"w must be a contiguous 2-D float32 tensor, got {w.dtype} "
                              f"{tuple(w.shape)}")
-        if w.shape[1] % 4 or w.data_ptr() % 16:
+        b, w_ptr = w.shape[1], w.data_ptr()
+        if b % 4 or w_ptr % 16:
             raise ValueError("w's rows must be 16-byte aligned (B a multiple of 4)")
         c_args = args(w, _host_rows(rows))
-        if w.device.type == "cpu":
+        if device.type == "cpu":
             return plain(w, rows)
-        lib = build.load("row_probes", _bind)
-        out = torch.empty((out_rows, w.shape[1]), dtype=w.dtype, device=w.device)
-        with torch.cuda.device(w.device):
-            stream = torch.cuda.current_stream(w.device).cuda_stream
-            err = getattr(lib, f"fd_probe_{name}")(w.data_ptr(), out.data_ptr(), *c_args,
-                                                   w.shape[1], stream)
+        if launch is None:
+            launch = getattr(build.load("row_probes", _bind), f"fd_probe_{entry or name}")
+        out = w.new_empty((out_rows, b))   # w's type and device, checked above
+        stream = _stream_handle(device.index)
+        if device.index == torch.cuda.current_device():
+            err = launch(w_ptr, out.data_ptr(), *c_args, b, stream)
+        else:   # a launch goes to the current device: make it w's
+            with torch.cuda.device(device):
+                err = launch(w_ptr, out.data_ptr(), *c_args, b, stream)
         if err != 0:
             raise RuntimeError(f"case_{name} launch failed: cudaError {err}")
         case.launches += 1
@@ -242,7 +279,7 @@ def _wrapper(name: str, plain: Callable, out_rows: int, args: Callable) -> Calla
 
     case.__name__ = case.__qualname__ = f"case_{name}"
     case.__doc__ = (f"Launch the {name} probe kernel on a CUDA ``w``; run "
-                    f"``case_{name}_plain`` on a CPU ``w``.")
+                    f"``{plain.__name__}`` on a CPU ``w``.")
     case.launches = 0
     return case
 
@@ -256,13 +293,19 @@ case_onehot = _wrapper("onehot", case_onehot_plain, 8, _args_onehot)
 case_dynwrite = _wrapper("dynwrite", case_dynwrite_plain, 8, _args_dynwrite)
 case_dmadyn_dst = _wrapper("dmadyn_dst", case_dmadyn_dst_plain, 8, _args_dmadyn_dst)
 case_take = _wrapper("take", case_take_plain, 8, _args_take)
+# the TMA design of the two slices, kept to be timed beside the kernels above
+case_vmemrow_bulk = _wrapper("vmemrow_bulk", case_vmemrow_plain, 1,
+                             _args_bulk(1, "vmemrow_bulk"), entry="vmem_bulk")
+case_vmem8_bulk = _wrapper("vmem8_bulk", case_vmem8_plain, 8, _args_bulk(8, "vmem8_bulk"),
+                           entry="vmem_bulk")
 
 # (label, wrapper, plain version), in the JAX script's order
 CASES: Sequence[Tuple[str, Callable, Callable]] = (
     ("unaligned dyn-start (r,8) bulk copy to shared", case_dma8, case_dma8_plain),
     ("aligned group bulk copy w3[g] (8,B)", case_dmagrp, case_dmagrp_plain),
-    ("shared-memory dyn 1-row read", case_vmemrow, case_vmemrow_plain),
-    ("shared-memory dyn 8-row read unaligned", case_vmem8, case_vmem8_plain),
+    ("dyn 1-row read of w[:256], only that row moved", case_vmemrow, case_vmemrow_plain),
+    ("dyn 8-row read of w[:256] unaligned, only those rows moved", case_vmem8,
+     case_vmem8_plain),
     ("accumulate dyn rows into row 0", case_acc, case_acc_plain),
     ("one-hot tensor-core select", case_onehot, case_onehot_plain),
     ("dyn-position 1-row write", case_dynwrite, case_dynwrite_plain),

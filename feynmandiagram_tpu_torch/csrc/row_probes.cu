@@ -10,9 +10,9 @@
 //   probe         TPU kernel (call site)                       here
 //   dma8          k_dma8, probe_mosaic_caps.py:39         k_dma8: one bulk copy of w[r:r+8]
 //   dmagrp        k_dmagrp, :61                            k_dmagrp: the same from row 8*(r div 8)
-//   vmemrow       k_vmemrow, :82                           k_vmemrow: row r of a staged w[:K]
-//   vmem8         k_vmem8, :100                            k_vmem8: rows r..r+8 of it
-//   acc           k_acc, :122                              k_acc: sum of 4 of its rows
+//   vmemrow       k_vmemrow, :82                           k_vmem, size 1: row r of w[:K]
+//   vmem8         k_vmem8, :100                            k_vmem, size 8: rows r..r+8 of it
+//   acc           k_acc, :122                              k_acc: sum of 4 rows of a staged w[:K]
 //   onehot        k_onehot, :143                           k_onehot: sel @ w[:K] on tensor cores
 //   dynwrite      k_dynwrite, :162                         k_dynwrite: zeros, row (r mod 8) <- w[0]
 //   dmadyn_dst    k_dmadyn_dst, :185                       k_dmadyn_dst: bulk copy to a dynamic
@@ -21,9 +21,10 @@
 //
 // What bounds them: at the probe's shapes (S = 4096, B = 512) each moves a
 // few KB to 512 KB in one launch, so the launch and the first access's
-// latency bound every one of them, not bandwidth.  The designs are the
-// simple, right ones; a gridded version that reads many rows per launch at
-// the copy roofline is later work.
+// latency bound every one of them, not bandwidth.  So a design counts the
+// dependent memory latencies and the host calls of a launch, not bytes per
+// second; a gridded version that reads many rows per launch at the copy
+// roofline is later work.
 //
 // - dma8, dmagrp, dmadyn_dst: the TPU's HBM->VMEM async copy with a DMA
 //   semaphore becomes a TMA bulk copy (cp.async.bulk global -> shared) whose
@@ -33,14 +34,29 @@
 //   The TPU's dmadyn_dst leaves the other scratch rows uninitialised (its
 //   output is undefined unless rows[1] mod 4 == 0); here the scratch is
 //   zero-filled first, so those output rows are 0.
-// - vmemrow, vmem8, acc, onehot: the TPU kept the whole [K = 256, B] block
-//   in VMEM (512 KB at B = 512), more than a block's 227 KB of shared
-//   memory.  So each block stages a [K, 64]-column tile (72 KB with the row
-//   stride padded to 72 floats, dynamic shared memory above 48 KB) over a
-//   grid on B, and reads the dynamic rows from shared memory.  Row starts
-//   are taken as lax.dynamic_slice takes them in the reference: a negative
-//   start counts once from the end, then the start is clamped into
-//   [0, K - size] (rows 256 and 1031 of the probe lie outside the block).
+// - vmemrow, vmem8: the TPU kept the whole [K = 256, B] block in VMEM and
+//   read `size` rows of it from a start known at run time.  Here the start
+//   is a kernel argument, known before a byte moves, so the block need not
+//   be resident: after the clamp the source is size * B * 4 contiguous,
+//   16-byte-aligned bytes of w, and so is the destination.  Bound by bytes
+//   (2 or 16 rows of traffic, nanoseconds), met by a launch's floor: the
+//   kernel moves only the rows asked for, one dependent memory latency
+//   deep, and takes no dynamic shared memory above the 48 KB default, so
+//   its launch is one host call.  k_vmem is one body for both sizes: a grid
+//   over the 16-byte pieces of the range, one ld.global.nc.v4 and one
+//   st.global.v4 a thread.  k_vmem_bulk moves the same range through
+//   shared memory with the TMA on both sides (bulk_load, then bulk_store),
+//   a chunk a block; it is kept to be timed beside k_vmem, and its
+//   bulk_store is there for the copy probes to take.
+// - acc, onehot: they read several or all rows of the [K = 256, B] block
+//   (512 KB at B = 512, more than a block's 227 KB of shared memory), so
+//   each block stages a [K, 64]-column tile (72 KB with the row stride
+//   padded to 72 floats, dynamic shared memory above 48 KB) over a grid on
+//   B, and reads the dynamic rows from shared memory.
+// - Row starts of the four are taken as lax.dynamic_slice takes them in the
+//   reference: a negative start counts once from the end, then the start is
+//   clamped into [0, K - size] (rows 256 and 1031 of the probe lie outside
+//   the block).
 // - onehot: the MXU select becomes mma.sync m16n8k8 TF32 (M padded from 8
 //   to 16 with zero rows of the selector).  The selector's 0 and 1 are exact
 //   in TF32; w is rounded to TF32, so a result is exact for |integers| <
@@ -60,6 +76,9 @@ extern __shared__ __align__(16) float dyn_smem[];
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kCopyThreads = 128;            // k_vmem: a block moves 2 KB
+constexpr int kBulkThreads = 32;             // k_vmem_bulk: one thread works, a warp waits
+constexpr int kMaxDevices = 64;
 constexpr int kTileCols = 64;                // columns of a staged tile
 constexpr int kTileStride = kTileCols + 8;   // padded row stride, in floats
 
@@ -114,6 +133,23 @@ __device__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* 
   }
 }
 
+// One TMA bulk copy of `bytes` contiguous bytes from shared `src` to global
+// `dst` (both 16-byte aligned, bytes a multiple of 16), called by the whole
+// block.  The block's shared-memory writes are fenced against the copy's
+// (async-proxy) reads first.  Thread 0 returns once the copy has read
+// `src`; the block must meet at a barrier before it writes there again.
+// The bytes are in `dst` when the kernel ends.
+__device__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+                 ::"l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
 // Copy n4 float4s from shared memory to out, the whole block.
 __device__ __forceinline__ void store_out(float* out, const float* src, int64_t n4) {
   for (int64_t i = threadIdx.x; i < n4; i += blockDim.x) {
@@ -160,24 +196,29 @@ __global__ void k_dmadyn_dst(const float* w, float* out, int64_t r, int r1, int 
   store_out(out, dyn_smem, 2LL * B);
 }
 
-__global__ void k_vmemrow(const float* w, float* out, int r, int K, int B) {
-  const int col0 = blockIdx.x * kTileCols;
-  stage_tile(dyn_smem, w, K, B, col0);
-  const int row = slice_start(r, K, 1);
-  const int c = threadIdx.x;
-  if (c < kTileCols && col0 + c < B) out[col0 + c] = dyn_smem[row * kTileStride + c];
+// out [size, B] = w[:K][s : s + size], s = slice_start(r, K, size): a grid
+// over the float4s of the one contiguous range, a load and a store each.
+__global__ void k_vmem(const float* w, float* out, int r, int K, int size, int B) {
+  const int64_t n4 = static_cast<int64_t>(size) * (B / 4);
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const float4* src =
+      reinterpret_cast<const float4*>(w + static_cast<int64_t>(slice_start(r, K, size)) * B);
+  reinterpret_cast<float4*>(out)[i] = __ldg(src + i);   // ld.global.nc.v4.f32
 }
 
-__global__ void k_vmem8(const float* w, float* out, int r, int K, int B) {
-  const int col0 = blockIdx.x * kTileCols;
-  stage_tile(dyn_smem, w, K, B, col0);
-  const int row0 = slice_start(r, K, 8);
-  for (int i = threadIdx.x; i < 8 * kTileCols; i += blockDim.x) {
-    const int row = i / kTileCols, c = i % kTileCols;
-    if (col0 + c < B) {
-      out[static_cast<int64_t>(row) * B + col0 + c] = dyn_smem[(row0 + row) * kTileStride + c];
-    }
-  }
+// The same range, `chunk` bytes (a multiple of 16) a block: a bulk load into
+// shared memory, then a bulk store from it.
+__global__ void k_vmem_bulk(const float* w, float* out, int r, int K, int size, int B,
+                            uint32_t chunk) {
+  __shared__ uint64_t bar;
+  const int64_t total = static_cast<int64_t>(size) * B * sizeof(float);
+  const int64_t off = static_cast<int64_t>(blockIdx.x) * chunk;
+  const uint32_t bytes = static_cast<uint32_t>(total - off < chunk ? total - off : chunk);
+  const char* src =
+      reinterpret_cast<const char*>(w + static_cast<int64_t>(slice_start(r, K, size)) * B);
+  bulk_load(dyn_smem, src + off, bytes, &bar);
+  bulk_store(reinterpret_cast<char*>(out) + off, dyn_smem, bytes);
 }
 
 __global__ void k_acc(const float* w, float* out, int r0, int r1, int r2, int r3, int K,
@@ -246,26 +287,66 @@ __global__ void k_take(const float* w, float* out, int B) {
   }
 }
 
-// Dynamic shared memory of a launch; the attribute is raised past the
-// 48 KB default where it is needed.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+// Let `kernel` take all the dynamic shared memory a block can have beside
+// its static share, past the 48 KB default.
+cudaError_t raise_smem(const void* kernel, int device) {
+  int optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t e =
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+                              optin - static_cast<int>(attr.sharedSizeBytes));
+}
+
+// The kernels that stage more than 48 KB get the attribute once per process
+// and device, not at every launch: the entries of those five call this
+// first, and k_vmem and the others never need it.
+int big_smem_ready() {
+  static bool ready[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (device < kMaxDevices && ready[device]) return 0;
+  const void* kernels[] = {reinterpret_cast<const void*>(k_dma8),
+                           reinterpret_cast<const void*>(k_dmagrp),
+                           reinterpret_cast<const void*>(k_dmadyn_dst),
+                           reinterpret_cast<const void*>(k_acc),
+                           reinterpret_cast<const void*>(k_onehot)};
+  for (const void* kernel : kernels) {
+    e = raise_smem(kernel, device);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (device < kMaxDevices) ready[device] = true;
+  return 0;
 }
 
 size_t tile_bytes(int K) { return static_cast<size_t>(K) * kTileStride * sizeof(float); }
 
-unsigned col_blocks(int B, int per_block) { return (B + per_block - 1) / per_block; }
+unsigned blocks_of(int64_t n, int64_t per_block) {
+  return static_cast<unsigned>((n + per_block - 1) / per_block);
+}
 
 template <typename... Params, typename... Args>
-int launch(void (*kernel)(Params...), unsigned grid, size_t smem, void* stream,
-           Args... args) {
-  const cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+int launch(void (*kernel)(Params...), unsigned grid, unsigned threads, size_t smem,
+           void* stream, Args... args) {
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A launch of one of the five kernels of big_smem_ready.
+template <typename... Params, typename... Args>
+int launch_big(void (*kernel)(Params...), unsigned grid, size_t smem, void* stream,
+               Args... args) {
+  const int e = big_smem_ready();
+  return e != 0 ? e : launch(kernel, grid, kThreads, smem, stream, args...);
+}
+
+// K >= size rows of w, B a multiple of 4 -> out [size, B].
+int vmem(const float* w, float* out, int r, int K, int size, int B, void* stream) {
+  const unsigned grid = blocks_of(static_cast<int64_t>(size) * (B / 4), kCopyThreads);
+  return launch(k_vmem, grid, kCopyThreads, 0, stream, w, out, r, K, size, B);
 }
 
 }  // namespace
@@ -274,47 +355,56 @@ extern "C" {
 
 // w + r*B .. w + (r+8)*B -> out [8, B]; the caller checks 0 <= r <= S - 8.
 int fd_probe_dma8(const float* w, float* out, long long r, int B, void* stream) {
-  return launch(k_dma8, 1, 8 * B * sizeof(float), stream, w, out, r, B);
+  return launch_big(k_dma8, 1, 8 * B * sizeof(float), stream, w, out, r, B);
 }
 
 // rows 8*(r div 8) .. +8 -> out [8, B]; the caller checks the group.
 int fd_probe_dmagrp(const float* w, float* out, long long r, int B, void* stream) {
-  return launch(k_dmagrp, 1, 8 * B * sizeof(float), stream, w, out, r, B);
+  return launch_big(k_dmagrp, 1, 8 * B * sizeof(float), stream, w, out, r, B);
 }
 
 // rows 8r .. 8r+8 -> scratch rows 8j .. 8j+8 (j = r1 mod 4) of a zeroed
 // [32, B] scratch; out = scratch[0:8].  The caller checks 0 <= 8r <= S - 8.
 int fd_probe_dmadyn_dst(const float* w, float* out, long long r, int r1, int B,
                         void* stream) {
-  return launch(k_dmadyn_dst, 1, 32 * B * sizeof(float), stream, w, out, r, r1, B);
+  return launch_big(k_dmadyn_dst, 1, 32 * B * sizeof(float), stream, w, out, r, r1, B);
 }
 
 int fd_probe_vmemrow(const float* w, float* out, int r, int K, int B, void* stream) {
-  return launch(k_vmemrow, col_blocks(B, kTileCols), tile_bytes(K), stream, w, out, r, K, B);
+  return vmem(w, out, r, K, 1, B, stream);
 }
 
 int fd_probe_vmem8(const float* w, float* out, int r, int K, int B, void* stream) {
-  return launch(k_vmem8, col_blocks(B, kTileCols), tile_bytes(K), stream, w, out, r, K, B);
+  return vmem(w, out, r, K, 8, B, stream);
+}
+
+// The same function by TMA, `chunk` bytes a block: a multiple of 16, at most
+// 32 KB (with the barrier it stays under the 48 KB default).
+int fd_probe_vmem_bulk(const float* w, float* out, int r, int K, int size, int chunk, int B,
+                       void* stream) {
+  const unsigned grid = blocks_of(static_cast<int64_t>(size) * B * sizeof(float), chunk);
+  return launch(k_vmem_bulk, grid, kBulkThreads, chunk, stream, w, out, r, K, size, B,
+                static_cast<uint32_t>(chunk));
 }
 
 int fd_probe_acc(const float* w, float* out, int r0, int r1, int r2, int r3, int K, int B,
                  void* stream) {
-  return launch(k_acc, col_blocks(B, kTileCols), tile_bytes(K), stream, w, out, r0, r1, r2,
-                r3, K, B);
+  return launch_big(k_acc, blocks_of(B, kTileCols), tile_bytes(K), stream, w, out, r0, r1, r2,
+                    r3, K, B);
 }
 
 // K must be a multiple of 8.
 int fd_probe_onehot(const float* w, float* out, int r, int K, int B, void* stream) {
-  return launch(k_onehot, col_blocks(B, kTileCols), tile_bytes(K), stream, w, out, r, K, B);
+  return launch_big(k_onehot, blocks_of(B, kTileCols), tile_bytes(K), stream, w, out, r, K, B);
 }
 
 int fd_probe_dynwrite(const float* w, float* out, int r, int B, void* stream) {
-  return launch(k_dynwrite, col_blocks(B, kThreads), 0, stream, w, out, r, B);
+  return launch(k_dynwrite, blocks_of(B, kThreads), kThreads, 0, stream, w, out, r, B);
 }
 
 // w needs at least 10 rows.
 int fd_probe_take(const float* w, float* out, int B, void* stream) {
-  return launch(k_take, col_blocks(B, kThreads), 0, stream, w, out, B);
+  return launch(k_take, blocks_of(B, kThreads), kThreads, 0, stream, w, out, B);
 }
 
 }  // extern "C"

@@ -110,6 +110,55 @@ def test_random_data_equals_interpret_reference(jax_script, name, rows):
     np.testing.assert_array_equal(got, _jax_case(jax_script, name, w, rows))
 
 
+def _clamp_edges(k, size):
+    """The starts on either side of each edge of dynamic_slice's clamp."""
+    return {"last": k - size, "last+1": k - size + 1, "k": k, "-1": -1, "-k": -k,
+            "-k-1": -k - 1, "int32_max": 2 ** 31 - 1, "int32_min": -2 ** 31}
+
+
+EDGES = list(_clamp_edges(8, 1))
+
+
+@pytest.mark.parametrize("edge", EDGES)
+@pytest.mark.parametrize("size", [1, 8])
+@pytest.mark.parametrize("k", [8, 100, 256])
+def test_slice_start_equals_dynamic_slice(k, size, edge):
+    """Exact: the start is an integer."""
+    r = _clamp_edges(k, size)[edge]
+    ref = jax.lax.dynamic_slice(jnp.arange(k, dtype=jnp.int32), (np.int32(r),), (size,))
+    assert pm._slice_start(r, k, size) == int(ref[0])
+
+
+@pytest.mark.parametrize("edge", ["last+1", "-1", "-k-1", "int32_max"])
+@pytest.mark.parametrize("s,b", [(8, 4), (8, 100), (100, 4), (100, 100), (255, 256)])
+@pytest.mark.parametrize("name,size", [("vmemrow", 1), ("vmem8", 8)])
+def test_slices_of_short_and_narrow_blocks_equal_interpret_reference(jax_script, name, size, s,
+                                                                     b, edge):
+    """Blocks of fewer than 256 rows (K = S) and widths down to one 16-byte
+    piece.  Exact: a copy."""
+    rows = (_clamp_edges(s, size)[edge], 0, 0, 0)
+    w = np.random.default_rng(s * b + size).standard_normal((s, b)).astype(np.float32)
+    got = _case(name)(torch.from_numpy(w), torch.tensor(rows, dtype=torch.int32)).numpy()
+    ref = _jax_case(jax_script, name, w, rows)
+    assert got.shape == ref.shape == (size, b)
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("name", ["vmemrow", "vmem8"])
+def test_bulk_variant_is_the_same_function(name, monkeypatch):
+    """On the CPU both run the one plain version; the variant checks its
+    chunk size as well."""
+    w, rows = pm.probe_inputs("cpu")
+    bulk = getattr(pm, f"case_{name}_bulk")
+    assert torch.equal(bulk(w, rows), _case(name)(w, rows)) and bulk.launches == 0
+    with pytest.raises(ValueError):
+        bulk(w.double(), rows)
+    for chunk in (0, 24, 48 * 1024):
+        monkeypatch.setattr(pm, "BULK_CHUNK_BYTES", chunk)
+        with pytest.raises(ValueError, match="chunk"):
+            bulk(w, rows)
+
+
 def test_random_data_take():
     w = np.random.default_rng(5).standard_normal((RS, RB)).astype(np.float32)
     got = pm.case_take(torch.from_numpy(w), torch.zeros(4, dtype=torch.int32)).numpy()
