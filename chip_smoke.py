@@ -43,14 +43,20 @@ output line or more each:
    the JAX script's data and on random data; the two slice kernels
    (vmemrow, vmem8) and their TMA variants also at every edge of the
    start's clamp, on blocks shorter than 256 rows and at widths from one
-   16-byte piece to 16384 columns;
+   16-byte piece to 16384 columns; the two copies (dma8, dmagrp) and their
+   TMA variants at the first, the last and an unaligned middle start, at
+   every residue mod 8 of a middle and of the last group, at the same
+   widths, on 8, 1000 and 4096 rows and on a 5.2 GB buffer whose byte
+   offsets pass 2^32;
 8. the probe path: ``benchmarks.probe_mosaic_caps.main()`` with every probe
    count at 0 before it, its output against the JAX script's values; then
    every probe's kernel, plain version and, where there is one, the one
    PyTorch call that computes its function, each on two clocks: device time
    (the profiler's busy time) and per-call time (CUDA events around one
-   call on an idle stream, the host's launch work included); the two slice
-   kernels beside their TMA variants on the device clock;
+   call on an idle stream, the host's launch work included); the four copy
+   kernels beside their TMA variants on the device clock; the two copies at
+   64, 128 and 256 threads a block; a launch's floor, the time of an empty
+   kernel on three clocks, and every probe's device time over it;
 9. ``benchmarks.probe_gather.run()``: the streaming roofline and the
    gather strategies at the JAX script's shapes, the bucket kernel among
    them.
@@ -97,7 +103,12 @@ GEOMETRIES = (None, (4, 24 * M), (2, 24 * M), (1, 24 * M), (4, 6 * M), (4, 1024 
 PROBE_FIRST = {"dma8": [704, 705], "dmagrp": [192, 193], "vmemrow": [704, 705],
                "vmem8": [704, 705], "acc": [2432, 2436], "onehot": [704, 705],
                "dynwrite": [0, 0], "dmadyn_dst": [632, 633], "take": [536, 537]}
-BULK_CHUNKS = (256, 1024, 4096, 16384)   # bytes a block of the TMA slice variants moves
+BULK_CHUNKS = (256, 1024, 4096, 16384)   # bytes a block of the TMA copy variants moves
+COPY_THREADS = (64, 128, 256)            # block sizes of the two copies' sweep
+EMPTY_GRIDS = ((1, 32), (16, 128))       # (blocks, threads) of the empty kernel: the least
+                                         # launch, and a thread per 16-byte piece of 8 rows
+                                         # at B 512
+BIG_COPY = (40000, 32768)                # S x B f32, 5.2 GB: byte offsets past 2^32
 PROBE_LINE = {"dma8": 39, "dmagrp": 61, "vmemrow": 82, "vmem8": 100, "acc": 122,
               "onehot": 143, "dynwrite": 162, "dmadyn_dst": 185, "take": 205}
 
@@ -789,13 +800,23 @@ def main() -> None:
         print(f"probe: {name} kernel = plain on the JAX data and {n} random cases "
               f"({'within 2^-11 relative, TF32' if name == 'onehot' else 'exact'}), "
               f"max|diff| {err:.3e}", flush=True)
-    for name, r in (("dma8", (4089,)), ("dmagrp", (4096,)), ("dmadyn_dst", (512,))):
+    out_of_range = (("dma8", (4089,)), ("dma8", (-1,)), ("dmagrp", (4096,)), ("dmagrp", (-1,)),
+                    ("dma8_bulk", (4089,)), ("dmagrp_bulk", (4096,)), ("dmadyn_dst", (512,)))
+    for name, r in out_of_range:
         try:
             getattr(pm, f"case_{name}")(w_p, rows_t(r))
         except ValueError:
             continue
         fail(f"probe {name}: an out-of-range source {r} did not raise")
-    print("probe: out-of-range copy sources raise (dma8, dmagrp, dmadyn_dst)", flush=True)
+    print("probe: out-of-range copy sources raise: "
+          + ", ".join(f"{name} {r[0]}" for name, r in out_of_range), flush=True)
+    # dmadyn_dst still stages its 32-row scratch: the widest B it takes
+    wr = rand_w(64, 1812, torch.float32)
+    for r in ((3, 0), (7, -4), (0, 1)):
+        if not torch.equal(pm.case_dmadyn_dst(wr, rows_t(r)), pm.case_dmadyn_dst_plain(
+                wr, rows_t(r))):
+            fail(f"probe dmadyn_dst at B 1812, rows {r}: not the plain version's rows")
+    print("probe: dmadyn_dst = plain at B 1812, the widest scratch a block holds", flush=True)
     # the two slice kernels and their TMA variants: every edge of the clamp,
     # blocks of fewer than 256 rows, widths from one 16-byte piece up
     slices = ((1, pm.case_vmemrow, pm.case_vmemrow_bulk, pm.case_vmemrow_plain),
@@ -826,6 +847,45 @@ def main() -> None:
     print(f"probe: vmemrow, vmem8 and their TMA variants = plain, exact, on {n_edge} cases: the "
           f"clamp's edges x S 8, 100, 256, 300 x B 4 to 16384; the TMA variants also in chunks "
           f"of {BULK_CHUNKS} bytes", flush=True)
+    # the two copies and their TMA variants: no clamp, a 64-bit start
+    copies = ((pm.case_dma8, pm.case_dma8_bulk, pm.case_dma8_plain),
+              (pm.case_dmagrp, pm.case_dmagrp_bulk, pm.case_dmagrp_plain))
+
+    def check_copies(wr):
+        """dma8 from the first, the last and an unaligned middle start and
+        dmagrp from every residue of a middle and of the last group, kernel
+        and TMA variant against plain; returns the number of starts."""
+        S = wr.shape[0]
+        starts = (sorted({0, S - 8, min(S // 3 | 1, S - 8)}),
+                  sorted({8 * g + k for g in (S // 16, S // 8 - 1) for k in range(8)}))
+        for (case, bulk, plain), rs in zip(copies, starts):
+            for r in rs:
+                ref = plain(wr, rows_t((r,)))
+                for fn in (case, bulk):
+                    got = fn(wr, rows_t((r,)))
+                    if got.shape != ref.shape or not torch.equal(got, ref):
+                        fail(f"probe {fn.__name__} on {S}x{wr.shape[1]}, start {r}: not the "
+                             f"plain version's rows")
+        return len(starts[0]) + len(starts[1])
+
+    n_copy = sum(check_copies(rand_w(S, B, torch.float32))
+                 for S in (8, 1000, 4096) for B in (4, 100, 512, 4096, 16384))
+    for chunk in BULK_CHUNKS:
+        pm.BULK_CHUNK_BYTES = chunk
+        for B in (100, 4096):
+            check_copies(rand_w(1000, B, torch.float32))
+    pm.BULK_CHUNK_BYTES = chunk_bytes
+    wr = rand_w(*BIG_COPY, torch.float32)
+    n_big = check_copies(wr)
+    big_gb = wr.numel() * 4 / 1e9
+    del wr
+    torch.cuda.empty_cache()
+    print(f"probe: dma8, dmagrp and their TMA variants = plain, exact, on {n_copy} starts: first, "
+          f"last and an unaligned middle row, every residue mod 8 of a middle and of the last "
+          f"group x S 8, 1000, 4096 x B 4 to 16384; the TMA variants also in chunks of "
+          f"{BULK_CHUNKS} bytes; and on {n_big} starts of a {BIG_COPY[0]} x {BIG_COPY[1]} buffer "
+          f"({big_gb:.1f} GB), the last rows {(BIG_COPY[0] - 8) * BIG_COPY[1] * 4} bytes in",
+          flush=True)
 
     # -- 8. the probe path, counts from 0
     for _, case, _ in pm.CASES:
@@ -854,7 +914,7 @@ def main() -> None:
         "vmem8": lambda: blk[r_p[0]:r_p[0] + 8].clone(),
         "onehot": lambda: torch.matmul(sel, blk),
         "take": lambda: torch.index_select(blk, 0, take_idx)}
-    def per_call_ms(fns, rounds=2):
+    def per_call_ms(fns, rounds=8):
         """median_ms of each of fns (events around one call on an idle
         stream, so mostly the host's launch work), taken in turns there and
         back, ``rounds`` times; the median of each one's readings."""
@@ -882,11 +942,11 @@ def main() -> None:
     print("probe device time per call, kernel / plain / library call, us: " + ", ".join(
         f"{name} {' / '.join(map(us, probe_dev[name]))}" for name in PROBE_LINE)
         + f"  [{smi}]", flush=True)
-    # the slice kernels beside the design they were chosen over: a TMA bulk
-    # load and bulk store through shared memory, a chunk a block
+    # the four copy kernels beside the design they were chosen over: a TMA
+    # bulk load and bulk store through shared memory, a chunk a block
     variants = []
-    for name, case, bulk in (("vmemrow", pm.case_vmemrow, pm.case_vmemrow_bulk),
-                             ("vmem8", pm.case_vmem8, pm.case_vmem8_bulk)):
+    for name in ("dma8", "dmagrp", "vmemrow", "vmem8"):
+        case, bulk = getattr(pm, f"case_{name}"), getattr(pm, f"case_{name}_bulk")
         bulk_us = []
         for chunk in BULK_CHUNKS:
             pm.BULK_CHUNK_BYTES = chunk
@@ -903,6 +963,52 @@ def main() -> None:
     pm.BULK_CHUNK_BYTES = chunk_bytes
     print("probe variants, device us per call: " + "; ".join(variants) + f"  [{smi}]",
           flush=True)
+    # the two copies at other block sizes, through the library's own entry
+    # (no wrapper: the device clock does not see the host), in turns there
+    # and back
+    lib = build.load("row_probes", pm._bind)
+    stream = torch.cuda.current_stream().cuda_stream
+    out8 = torch.empty((8, w_p.shape[1]), dtype=torch.float32, device=dev)
+
+    def raw(entry, *args):
+        """A call of the library's fd_probe_<entry> that fails the run on an error."""
+        fn = getattr(lib, f"fd_probe_{entry}")
+
+        def call():
+            if fn(*args) != 0:
+                fail(f"fd_probe_{entry}{args} did not launch")
+        return call
+
+    sweep = {}
+    for group, name in enumerate(("dma8", "dmagrp")):
+        fns = {t: raw("copy8_threads", w_p.data_ptr(), out8.data_ptr(), r_p[0], group, t,
+                      w_p.shape[1], stream) for t in COPY_THREADS}
+        for t, fn in fns.items():
+            out8.zero_()
+            fn()
+            if not torch.equal(out8, getattr(pm, f"case_{name}_plain")(w_p, rows_p)):
+                fail(f"probe {name} at {t} threads a block: not the plain version's rows")
+        seen = {t: [] for t in COPY_THREADS}
+        for t in [*COPY_THREADS, *reversed(COPY_THREADS)]:
+            seen[t].append((busy_ms(fns[t], n=100), queued_ms(fns[t], n=20)))
+        sweep[name] = {t: tuple(float(np.mean(x)) for x in zip(*v)) for t, v in seen.items()}
+    print("probe block sizes, device us per call alone / 20 back to back: " + "; ".join(
+        f"{name} " + ", ".join(f"{t} threads {us(a)} / {us(q)}" for t, (a, q) in by.items())
+        for name, by in sweep.items()) + f"  [{smi}]", flush=True)
+    # a launch's floor: an empty kernel through the same launch path, on the
+    # device clock alone and back to back, and on the per-call clock
+    floors = {}
+    for grid, threads in EMPTY_GRIDS:
+        fn = raw("empty", grid, threads, stream)
+        floors[grid, threads] = (busy_ms(fn, n=100), queued_ms(fn, n=20), median_ms(fn))
+    floor_dev = min(f[0] for f in floors.values())
+    print("launch floor, an empty kernel, us: " + "; ".join(
+        f"<<<{g}, {t}>>> device {us(a)}, 20 back to back {us(q)}, per call (no wrapper) {us(c)}"
+        for (g, t), (a, q, c) in floors.items()) + f"  [{smi}]", flush=True)
+    print(f"probe device time over the floor of {us(floor_dev)} us: " + ", ".join(
+        f"{name} {probe_dev[name][0] / floor_dev:.2f}" for name in PROBE_LINE)
+        + "; plain " + ", ".join(f"{name} {probe_dev[name][1] / floor_dev:.2f}"
+                                 for name in PROBE_LINE) + f"  [{smi}]", flush=True)
     # bound: the rows a probe must read and write, once each, over the memory
     # rate; for onehot also its 2 * 8 * 256 * B operations over the TF32 rate
     row_bytes = w_p.shape[1] * 4
@@ -920,7 +1026,8 @@ def main() -> None:
               f"{name} {' / '.join(map(us, probe_call[name]))}, "
               f"{1e6 * probe_bound[name][0]:.1f} ns ({probe_bound[name][1]})"
               for name in PROBE_LINE)
-          + "; a launch's floor, not the bound, is what the probes meet"
+          + f"; a launch's floor ({us(floor_dev)} us on the device), not the bound, is what "
+          f"the probes meet"
           + f"  [{smi}]", flush=True)
 
     phase("probes")
@@ -956,7 +1063,8 @@ def main() -> None:
             "ms": probe_call[name][0], "plain_ms": probe_call[name][1],
             "bound_ms": probe_bound[name][0], "bound_by": probe_bound[name][1],
             "library_ms": probe_call[name][2], "device_ms": probe_dev[name][0],
-            "plain_device_ms": probe_dev[name][1], "library_device_ms": probe_dev[name][2]}
+            "plain_device_ms": probe_dev[name][1], "library_device_ms": probe_dev[name][2],
+            "floor_device_ms": floor_dev}
             for name in PROBE_LINE]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,9 +7,16 @@ sum of 4 rows of a block held in VMEM, a one-hot product on the matrix
 unit, a dynamic-row write, a copy to a dynamic destination, and a static
 ``take``.  Here each is a hand-written CUDA kernel of ``csrc/row_probes.cu``
 (the source says which TPU kernel each replaces and why it is built so).
-``case_vmemrow_bulk`` and ``case_vmem8_bulk`` compute what ``case_vmemrow``
-and ``case_vmem8`` do by the design that was timed against theirs, a TMA
-bulk load and bulk store through shared memory.
+Four of them (dma8, dmagrp, vmemrow, vmem8) copy whole rows from a start
+known at run time; on the card all four are one copy body, a grid of threads
+that each load and store one 16-byte piece of the contiguous range, and
+differ only in where the range starts.  ``case_dma8_bulk``,
+``case_dmagrp_bulk``, ``case_vmemrow_bulk`` and ``case_vmem8_bulk`` compute
+the same four functions by the design that was timed against that one and
+lost: a TMA bulk load and bulk store through shared memory,
+``BULK_CHUNK_BYTES`` a block (in one chunk, the TPU kernels' async copy into
+scratch and out of it).  They are kept so that the two can be timed side by
+side.
 
 For each case there is a wrapper ``case_<name>(w, rows)`` and a plain
 PyTorch version ``case_<name>_plain(w, rows)``.  ``w`` is a float32 ``[S,
@@ -25,7 +32,9 @@ no clamp, so the wrapper raises on a source outside ``w``.  Slices of the
 negative start counts once from the end, then the start is clamped into
 ``[0, 256 - size]``.  ``dmadyn_dst`` zero-fills its scratch, whose
 other rows the TPU kernel left uninitialised.  ``r mod 8`` and ``r div 8``
-are floor modulo and floor division, as in ``jnp``.
+are floor modulo and floor division, as in ``jnp``.  Any width ``B`` that is
+a multiple of 4 is taken, except by dmadyn_dst, whose 32-row scratch must
+fit a block's shared memory.
 
 ``python -m feynmandiagram_tpu_torch.benchmarks.probe_mosaic_caps`` runs the
 nine cases on the card at the script's shapes (``S = 4096``, ``B = 512``,
@@ -48,14 +57,17 @@ S, B = 4096, 512
 ROWS = (17, 256, 1031, 9)
 BLOCK_ROWS = 256                      # the w[:256] block of the VMEM cases
 TAKE_ROWS = (3, 1, 4, 1, 5, 9, 2, 6)  # k_take's static row list
-SMEM_BYTES = 227 * 1024               # shared memory a block can have
+SMEM_BYTES = 227 * 1024               # shared memory a block can have (dmadyn_dst's scratch)
 BULK_CHUNK_BYTES = 1024               # a block's share of a *_bulk copy (16 B to 32 KB)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # per entry fd_probe_<name>: the arguments between (w, out) and (B, stream)
 _ENTRY_ARGS = {"dma8": (_L,), "dmagrp": (_L,), "dmadyn_dst": (_L, _I),
-               "vmemrow": (_I, _I), "vmem8": (_I, _I), "vmem_bulk": (_I,) * 4,
-               "acc": (_I,) * 5, "onehot": (_I, _I), "dynwrite": (_I,), "take": ()}
+               "vmemrow": (_I, _I), "vmem8": (_I, _I), "bulk": (_L, _I, _I, _I, _I),
+               "acc": (_I,) * 5, "onehot": (_I, _I), "dynwrite": (_I,), "take": (),
+               # measuring tools: dma8 (group 0) or dmagrp (1) at a given
+               # block size, for the sweep that chose the kernels'
+               "copy8_threads": (_L, _I, _I)}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -63,6 +75,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, f"fd_probe_{name}")
         fn.restype = ctypes.c_int
         fn.argtypes = [_P, _P, *extra, _I, _P]
+    # the empty kernel that measures a launch's floor: (grid, threads, stream)
+    lib.fd_probe_empty.restype = ctypes.c_int
+    lib.fd_probe_empty.argtypes = [_I, _I, _P]
 
 
 def probe_inputs(device, s: int = S, b: int = B) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -152,81 +167,81 @@ def case_take_plain(w, rows):
 
 # ---- wrappers
 
-def _copy_src(w, first: int, what: str) -> None:
-    """A copy of rows first .. first+8 must lie inside w: it has no clamp."""
-    if not 0 <= first <= w.shape[0] - 8:
-        raise ValueError(f"{what}: rows {first}..{first + 8} outside w's {w.shape[0]} rows")
+def _copy_src(s: int, first: int, what: str) -> None:
+    """A copy of rows first .. first+8 must lie inside w's s rows: it has no clamp."""
+    if not 0 <= first <= s - 8:
+        raise ValueError(f"{what}: rows {first}..{first + 8} outside w's {s} rows")
 
 
-def _smem(w, rows_held: int, what: str) -> None:
-    if rows_held * w.shape[1] * w.element_size() > SMEM_BYTES:
-        raise ValueError(f"{what}: {rows_held} rows of {w.shape[1]} floats exceed a block's "
-                         f"shared memory")
+# Each _args_<name>(s, b, r) checks what its kernel needs of a float32 w
+# [s, b] and the row indices r, and returns the entry's arguments between
+# (w, out) and (B, stream).
 
-
-def _args_dma8(w, r):
-    _copy_src(w, r[0], "dma8")
-    _smem(w, 8, "dma8")
+def _args_dma8(s, b, r):
+    _copy_src(s, r[0], "dma8")
     return (r[0],)
 
 
-def _args_dmagrp(w, r):
-    if w.shape[0] % 8:
-        raise ValueError(f"dmagrp: w's {w.shape[0]} rows are not groups of 8")
-    _copy_src(w, 8 * (r[0] // 8), "dmagrp")
-    _smem(w, 8, "dmagrp")
+def _args_dmagrp(s, b, r):
+    if s % 8:
+        raise ValueError(f"dmagrp: w's {s} rows are not groups of 8")
+    _copy_src(s, 8 * (r[0] // 8), "dmagrp")
     return (r[0],)
 
 
-def _args_dmadyn_dst(w, r):
-    _copy_src(w, 8 * r[0], "dmadyn_dst")
-    _smem(w, 32, "dmadyn_dst")
+def _args_dmadyn_dst(s, b, r):
+    _copy_src(s, 8 * r[0], "dmadyn_dst")
+    if 32 * b * 4 > SMEM_BYTES - 16:   # the scratch beside the kernel's barrier
+        raise ValueError(f"dmadyn_dst: 32 rows of {b} floats exceed a block's shared memory")
     return (r[0], r[1])
 
 
-def _block_rows(w, least: int, what: str) -> int:
-    k = min(BLOCK_ROWS, w.shape[0])
+def _block_rows(s: int, least: int, what: str) -> int:
+    k = min(BLOCK_ROWS, s)
     if k < least:
         raise ValueError(f"{what}: needs {least} rows of w, has {k}")
     return k
 
 
-def _args_vmemrow(w, r):
-    return (r[0], _block_rows(w, 1, "vmemrow"))
+def _args_vmemrow(s, b, r):
+    return (r[0], _block_rows(s, 1, "vmemrow"))
 
 
-def _args_vmem8(w, r):
-    return (r[0], _block_rows(w, 8, "vmem8"))
+def _args_vmem8(s, b, r):
+    return (r[0], _block_rows(s, 8, "vmem8"))
 
 
-def _args_bulk(size: int, what: str) -> Callable:
-    def args(w, r):
+def _args_bulk(start: int, size: int, args_of: Callable) -> Callable:
+    """The arguments of ``fd_probe_bulk`` for the function whose kernel of
+    record takes ``args_of``: its checks, and the chunk's."""
+    def args(s, b, r):
         chunk = BULK_CHUNK_BYTES
         if chunk % 16 or not 16 <= chunk <= 32 * 1024:
-            raise ValueError(f"{what}: a chunk of {chunk} bytes is no multiple of 16 up to 32 KB")
-        return (r[0], _block_rows(w, size, what), size, chunk)
+            raise ValueError(f"a chunk of {chunk} bytes is no multiple of 16 up to 32 KB")
+        r0, *k = args_of(s, b, r)
+        return (r0, k[0] if k else s, size, start, chunk)
     return args
 
 
-def _args_acc(w, r):
-    return (*r, _block_rows(w, 1, "acc"))
+def _args_acc(s, b, r):
+    return (*r, _block_rows(s, 1, "acc"))
 
 
-def _args_onehot(w, r):
-    k = _block_rows(w, 8, "onehot")
+def _args_onehot(s, b, r):
+    k = _block_rows(s, 8, "onehot")
     if k % 8:
         raise ValueError(f"onehot: the block's {k} rows are not a multiple of 8")
     # any start outside [-8, k] selects no row; clamping keeps r + i in int32
     return (min(max(r[0], -8), k), k)
 
 
-def _args_dynwrite(w, r):
-    _block_rows(w, 1, "dynwrite")
+def _args_dynwrite(s, b, r):
+    _block_rows(s, 1, "dynwrite")
     return (r[0],)
 
 
-def _args_take(w, r):
-    _block_rows(w, max(TAKE_ROWS) + 1, "take")
+def _args_take(s, b, r):
+    _block_rows(s, max(TAKE_ROWS) + 1, "take")
     return ()
 
 
@@ -242,36 +257,51 @@ def _stream_handle(index: int) -> int:
     return torch.cuda.current_stream(index).cuda_stream
 
 
+def _reject(name: str, w: torch.Tensor, rows: torch.Tensor) -> None:
+    """Say which of the wrappers' common demands ``w`` or ``rows`` fails."""
+    if w.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"case_{name} runs on cuda or cpu tensors, not {w.device.type}")
+    if w.dim() != 2 or w.dtype != torch.float32 or not w.is_contiguous():
+        raise ValueError(f"w must be a contiguous 2-D float32 tensor, got {w.dtype} "
+                         f"{tuple(w.shape)}")
+    if w.shape[1] % 4 or w.data_ptr() % 16:
+        raise ValueError("w's rows must be 16-byte aligned (B a multiple of 4)")
+    _host_rows(rows)
+    raise AssertionError("unreachable: one of the demands above failed")
+
+
 def _wrapper(name: str, plain: Callable, out_rows: int, args: Callable,
              entry: str = "") -> Callable:
     """``case_<name>``: the checks, then the plain version on a CPU ``w`` or
     the launch of ``fd_probe_<entry or name>`` on a CUDA ``w``.  The C entry
-    is looked up at the first launch and kept."""
+    is looked up at the first launch and kept.  The demands common to all
+    probes are tested in one expression, each tensor attribute read once;
+    ``_reject`` words the error when it fails."""
     launch = None
 
     def case(w: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         nonlocal launch
         device = w.device
-        if device.type != "cuda" and device.type != "cpu":
-            raise ValueError(f"case_{name} runs on cuda or cpu tensors, not {device.type}")
-        if w.dim() != 2 or w.dtype != torch.float32 or not w.is_contiguous():
-            raise ValueError(f"w must be a contiguous 2-D float32 tensor, got {w.dtype} "
-                             f"{tuple(w.shape)}")
-        b, w_ptr = w.shape[1], w.data_ptr()
-        if b % 4 or w_ptr % 16:
-            raise ValueError("w's rows must be 16-byte aligned (B a multiple of 4)")
-        c_args = args(w, _host_rows(rows))
-        if device.type == "cpu":
+        kind = device.type
+        shape = w.shape
+        if not ((kind == "cuda" or kind == "cpu") and len(shape) == 2
+                and w.dtype is torch.float32 and w.is_contiguous() and shape[1] % 4 == 0
+                and w.data_ptr() % 16 == 0 and rows.dtype is torch.int32
+                and rows.shape == (4,)):
+            _reject(name, w, rows)
+        s, b = shape
+        c_args = args(s, b, rows.tolist())
+        if kind == "cpu":
             return plain(w, rows)
         if launch is None:
             launch = getattr(build.load("row_probes", _bind), f"fd_probe_{entry or name}")
         out = w.new_empty((out_rows, b))   # w's type and device, checked above
         stream = _stream_handle(device.index)
         if device.index == torch.cuda.current_device():
-            err = launch(w_ptr, out.data_ptr(), *c_args, b, stream)
+            err = launch(w.data_ptr(), out.data_ptr(), *c_args, b, stream)
         else:   # a launch goes to the current device: make it w's
             with torch.cuda.device(device):
-                err = launch(w_ptr, out.data_ptr(), *c_args, b, stream)
+                err = launch(w.data_ptr(), out.data_ptr(), *c_args, b, stream)
         if err != 0:
             raise RuntimeError(f"case_{name} launch failed: cudaError {err}")
         case.launches += 1
@@ -293,16 +323,22 @@ case_onehot = _wrapper("onehot", case_onehot_plain, 8, _args_onehot)
 case_dynwrite = _wrapper("dynwrite", case_dynwrite_plain, 8, _args_dynwrite)
 case_dmadyn_dst = _wrapper("dmadyn_dst", case_dmadyn_dst_plain, 8, _args_dmadyn_dst)
 case_take = _wrapper("take", case_take_plain, 8, _args_take)
-# the TMA design of the two slices, kept to be timed beside the kernels above
+# the TMA design of the four copies (a bulk load and a bulk store through
+# shared memory, BULK_CHUNK_BYTES a block), kept to be timed beside the
+# kernels above; the second argument of _args_bulk is row_probes.cu's Start
+case_dma8_bulk = _wrapper("dma8_bulk", case_dma8_plain, 8, _args_bulk(1, 8, _args_dma8),
+                          entry="bulk")
+case_dmagrp_bulk = _wrapper("dmagrp_bulk", case_dmagrp_plain, 8,
+                            _args_bulk(2, 8, _args_dmagrp), entry="bulk")
 case_vmemrow_bulk = _wrapper("vmemrow_bulk", case_vmemrow_plain, 1,
-                             _args_bulk(1, "vmemrow_bulk"), entry="vmem_bulk")
-case_vmem8_bulk = _wrapper("vmem8_bulk", case_vmem8_plain, 8, _args_bulk(8, "vmem8_bulk"),
-                           entry="vmem_bulk")
+                             _args_bulk(0, 1, _args_vmemrow), entry="bulk")
+case_vmem8_bulk = _wrapper("vmem8_bulk", case_vmem8_plain, 8, _args_bulk(0, 8, _args_vmem8),
+                           entry="bulk")
 
 # (label, wrapper, plain version), in the JAX script's order
 CASES: Sequence[Tuple[str, Callable, Callable]] = (
-    ("unaligned dyn-start (r,8) bulk copy to shared", case_dma8, case_dma8_plain),
-    ("aligned group bulk copy w3[g] (8,B)", case_dmagrp, case_dmagrp_plain),
+    ("unaligned dyn-start (r,8) copy, a 16-byte piece a thread", case_dma8, case_dma8_plain),
+    ("aligned group copy w3[g] (8,B), the same body", case_dmagrp, case_dmagrp_plain),
     ("dyn 1-row read of w[:256], only that row moved", case_vmemrow, case_vmemrow_plain),
     ("dyn 8-row read of w[:256] unaligned, only those rows moved", case_vmem8,
      case_vmem8_plain),

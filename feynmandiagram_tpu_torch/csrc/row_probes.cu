@@ -8,9 +8,9 @@
 // float32, w is [S, B] row-major, and B * 4 is a multiple of 16 bytes.
 //
 //   probe         TPU kernel (call site)                       here
-//   dma8          k_dma8, probe_mosaic_caps.py:39         k_dma8: one bulk copy of w[r:r+8]
-//   dmagrp        k_dmagrp, :61                            k_dmagrp: the same from row 8*(r div 8)
-//   vmemrow       k_vmemrow, :82                           k_vmem, size 1: row r of w[:K]
+//   dma8          k_dma8, probe_mosaic_caps.py:39         k_dma8: copy_rows from row r, 8 rows
+//   dmagrp        k_dmagrp, :61                            k_dmagrp: copy_rows from row 8*(r div 8)
+//   vmemrow       k_vmemrow, :82                           k_vmem, size 1: copy_rows, row r of w[:K]
 //   vmem8         k_vmem8, :100                            k_vmem, size 8: rows r..r+8 of it
 //   acc           k_acc, :122                              k_acc: sum of 4 rows of a staged w[:K]
 //   onehot        k_onehot, :143                           k_onehot: sel @ w[:K] on tensor cores
@@ -24,39 +24,50 @@
 // latency bound every one of them, not bandwidth.  So a design counts the
 // dependent memory latencies and the host calls of a launch, not bytes per
 // second; a gridded version that reads many rows per launch at the copy
-// roofline is later work.
+// roofline is later work.  k_empty, a kernel that does nothing, is there to
+// measure that floor.
 //
-// - dma8, dmagrp, dmadyn_dst: the TPU's HBM->VMEM async copy with a DMA
-//   semaphore becomes a TMA bulk copy (cp.async.bulk global -> shared) whose
-//   completion is counted in bytes on an mbarrier.  One block, one copy of
-//   nrows * B * 4 contiguous bytes; addresses and size are 16-byte aligned.
-//   The copy has no clamp: the wrapper raises on an out-of-range source.
-//   The TPU's dmadyn_dst leaves the other scratch rows uninitialised (its
-//   output is undefined unless rows[1] mod 4 == 0); here the scratch is
-//   zero-filled first, so those output rows are 0.
-// - vmemrow, vmem8: the TPU kept the whole [K = 256, B] block in VMEM and
-//   read `size` rows of it from a start known at run time.  Here the start
-//   is a kernel argument, known before a byte moves, so the block need not
-//   be resident: after the clamp the source is size * B * 4 contiguous,
-//   16-byte-aligned bytes of w, and so is the destination.  Bound by bytes
-//   (2 or 16 rows of traffic, nanoseconds), met by a launch's floor: the
-//   kernel moves only the rows asked for, one dependent memory latency
-//   deep, and takes no dynamic shared memory above the 48 KB default, so
-//   its launch is one host call.  k_vmem is one body for both sizes: a grid
-//   over the 16-byte pieces of the range, one ld.global.nc.v4 and one
-//   st.global.v4 a thread.  k_vmem_bulk moves the same range through
-//   shared memory with the TMA on both sides (bulk_load, then bulk_store),
-//   a chunk a block; it is kept to be timed beside k_vmem, and its
-//   bulk_store is there for the copy probes to take.
+// - dma8, dmagrp, vmemrow, vmem8: four copies of `size` whole rows from a
+//   start known at run time.  On the TPU the memory spaces shaped them: dma8
+//   and dmagrp were an async copy HBM -> VMEM scratch on a DMA semaphore and
+//   a copy out of the scratch; vmemrow and vmem8 kept the whole [K = 256, B]
+//   block in VMEM and read `size` rows of it.  Here source and destination
+//   are both global memory and the start is a kernel argument, known before
+//   a byte moves, so nothing need be staged or resident: the source is
+//   size * B * 4 contiguous, 16-byte-aligned bytes of w, and so is the
+//   destination.  Bound by bytes (2 or 16 rows of traffic, nanoseconds), met
+//   by a launch's floor: one copy body, copy_rows, a grid over the 16-byte
+//   pieces of the range, one ld.global.nc.v4 and one st.global.v4 a thread,
+//   one dependent memory latency deep; no shared memory and no barrier, so
+//   a launch is one host call.  The kernels differ in where the range
+//   starts, which each computes on the device as the TPU kernel did from
+//   rows[0]: dma8 at row r, dmagrp at row 8 * (r div 8) (floor division),
+//   both unclamped (the wrapper raises on a source outside w) and 64-bit
+//   (r * B passes 2^31 on large buffers); vmemrow and vmem8 at the clamped
+//   slice start below.
+// - k_bulk moves the same ranges, from any of the three starts, through
+//   shared memory with the TMA on both sides (bulk_load on an mbarrier, then
+//   bulk_store), a chunk a block.  It is the design the TPU kernels
+//   translate to word for word, kept to be timed beside copy_rows: two
+//   dependent asynchronous copies with a barrier wait between them.  In one
+//   chunk of 8 rows it is the one-block copy dma8 and dmagrp had before.
+// - dmadyn_dst: the TPU's HBM->VMEM async copy with a DMA semaphore becomes
+//   a TMA bulk copy (cp.async.bulk global -> shared) whose completion is
+//   counted in bytes on an mbarrier.  One block, one copy of 8 * B * 4
+//   contiguous bytes; addresses and size are 16-byte aligned.  The copy has
+//   no clamp: the wrapper raises on an out-of-range source.  The TPU kernel
+//   leaves the other scratch rows uninitialised (its output is undefined
+//   unless rows[1] mod 4 == 0); here the scratch is zero-filled first, so
+//   those output rows are 0.
 // - acc, onehot: they read several or all rows of the [K = 256, B] block
 //   (512 KB at B = 512, more than a block's 227 KB of shared memory), so
 //   each block stages a [K, 64]-column tile (72 KB with the row stride
 //   padded to 72 floats, dynamic shared memory above 48 KB) over a grid on
 //   B, and reads the dynamic rows from shared memory.
-// - Row starts of the four are taken as lax.dynamic_slice takes them in the
-//   reference: a negative start counts once from the end, then the start is
-//   clamped into [0, K - size] (rows 256 and 1031 of the probe lie outside
-//   the block).
+// - Row starts of vmemrow, vmem8, acc and onehot are taken as
+//   lax.dynamic_slice takes them in the reference: a negative start counts
+//   once from the end, then the start is clamped into [0, K - size] (rows
+//   256 and 1031 of the probe lie outside the block).
 // - onehot: the MXU select becomes mma.sync m16n8k8 TF32 (M padded from 8
 //   to 16 with zero rows of the selector).  The selector's 0 and 1 are exact
 //   in TF32; w is rounded to TF32, so a result is exact for |integers| <
@@ -76,8 +87,8 @@ extern __shared__ __align__(16) float dyn_smem[];
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCopyThreads = 128;            // k_vmem: a block moves 2 KB
-constexpr int kBulkThreads = 32;             // k_vmem_bulk: one thread works, a warp waits
+constexpr int kCopyThreads = 256;            // copy_rows: a block moves 4 KB
+constexpr int kBulkThreads = 32;             // k_bulk: one thread works, a warp waits
 constexpr int kMaxDevices = 64;
 constexpr int kTileCols = 64;                // columns of a staged tile
 constexpr int kTileStride = kTileCols + 8;   // padded row stride, in floats
@@ -97,6 +108,16 @@ __device__ __forceinline__ int slice_start(int r, int K, int size) {
   const int hi = K - size;
   return r < 0 ? 0 : (r > hi ? hi : r);
 }
+
+// How a copy kernel takes the first row of its range from the row index r.
+enum Start : int {
+  kStartSlice = 0,   // slice_start(r, K, size)
+  kStartRow = 1,     // r
+  kStartGroup = 2,   // 8 * (r div 8), floor division
+};
+
+// 8 * (r div 8), floor division: in two's complement, r less its low 3 bits.
+__device__ __forceinline__ int64_t group_start(int64_t r) { return r & ~int64_t{7}; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -172,17 +193,23 @@ __device__ void stage_tile(float* tile, const float* w, int K, int B, int col0) 
   __syncthreads();
 }
 
+// out [size, B] = w[first : first + size], one contiguous range: a grid over
+// its float4s, a load and a store each.
+__device__ __forceinline__ void copy_rows(const float* w, float* out, int64_t first, int size,
+                                          int B) {
+  const int64_t n4 = static_cast<int64_t>(size) * (B / 4);
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const float4* src = reinterpret_cast<const float4*>(w + first * B);
+  reinterpret_cast<float4*>(out)[i] = __ldg(src + i);   // ld.global.nc.v4.f32
+}
+
 __global__ void k_dma8(const float* w, float* out, int64_t r, int B) {
-  __shared__ uint64_t bar;
-  bulk_load(dyn_smem, w + r * B, 8u * B * sizeof(float), &bar);
-  store_out(out, dyn_smem, 2LL * B);
+  copy_rows(w, out, r, 8, B);
 }
 
 __global__ void k_dmagrp(const float* w, float* out, int64_t r, int B) {
-  __shared__ uint64_t bar;
-  const int64_t g = r >= 0 ? r / 8 : -((-r + 7) / 8);   // floor division
-  bulk_load(dyn_smem, w + g * 8 * B, 8u * B * sizeof(float), &bar);
-  store_out(out, dyn_smem, 2LL * B);
+  copy_rows(w, out, group_start(r), 8, B);
 }
 
 __global__ void k_dmadyn_dst(const float* w, float* out, int64_t r, int r1, int B) {
@@ -196,27 +223,23 @@ __global__ void k_dmadyn_dst(const float* w, float* out, int64_t r, int r1, int 
   store_out(out, dyn_smem, 2LL * B);
 }
 
-// out [size, B] = w[:K][s : s + size], s = slice_start(r, K, size): a grid
-// over the float4s of the one contiguous range, a load and a store each.
+// out [size, B] = w[:K][s : s + size], s = slice_start(r, K, size).
 __global__ void k_vmem(const float* w, float* out, int r, int K, int size, int B) {
-  const int64_t n4 = static_cast<int64_t>(size) * (B / 4);
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n4) return;
-  const float4* src =
-      reinterpret_cast<const float4*>(w + static_cast<int64_t>(slice_start(r, K, size)) * B);
-  reinterpret_cast<float4*>(out)[i] = __ldg(src + i);   // ld.global.nc.v4.f32
+  copy_rows(w, out, slice_start(r, K, size), size, B);
 }
 
-// The same range, `chunk` bytes (a multiple of 16) a block: a bulk load into
-// shared memory, then a bulk store from it.
-__global__ void k_vmem_bulk(const float* w, float* out, int r, int K, int size, int B,
-                            uint32_t chunk) {
+// The range of any of the three kernels above (`start` says which),
+// `chunk` bytes (a multiple of 16) a block: a bulk load into shared memory,
+// then a bulk store from it.
+__global__ void k_bulk(const float* w, float* out, int64_t r, int K, int size, int B,
+                       int start, uint32_t chunk) {
   __shared__ uint64_t bar;
+  const int64_t first = start == kStartSlice ? slice_start(static_cast<int>(r), K, size)
+                        : start == kStartGroup ? group_start(r) : r;
   const int64_t total = static_cast<int64_t>(size) * B * sizeof(float);
   const int64_t off = static_cast<int64_t>(blockIdx.x) * chunk;
   const uint32_t bytes = static_cast<uint32_t>(total - off < chunk ? total - off : chunk);
-  const char* src =
-      reinterpret_cast<const char*>(w + static_cast<int64_t>(slice_start(r, K, size)) * B);
+  const char* src = reinterpret_cast<const char*>(w + first * B);
   bulk_load(dyn_smem, src + off, bytes, &bar);
   bulk_store(reinterpret_cast<char*>(out) + off, dyn_smem, bytes);
 }
@@ -287,6 +310,9 @@ __global__ void k_take(const float* w, float* out, int B) {
   }
 }
 
+// The least a launch can do: what every probe's time is held against.
+__global__ void k_empty() {}
+
 // Let `kernel` take all the dynamic shared memory a block can have beside
 // its static share, past the 48 KB default.
 cudaError_t raise_smem(const void* kernel, int device) {
@@ -301,17 +327,15 @@ cudaError_t raise_smem(const void* kernel, int device) {
 }
 
 // The kernels that stage more than 48 KB get the attribute once per process
-// and device, not at every launch: the entries of those five call this
-// first, and k_vmem and the others never need it.
+// and device, not at every launch: the entries of those three call this
+// first, and the copies and the others never need it.
 int big_smem_ready() {
   static bool ready[kMaxDevices] = {};
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (device < kMaxDevices && ready[device]) return 0;
-  const void* kernels[] = {reinterpret_cast<const void*>(k_dma8),
-                           reinterpret_cast<const void*>(k_dmagrp),
-                           reinterpret_cast<const void*>(k_dmadyn_dst),
+  const void* kernels[] = {reinterpret_cast<const void*>(k_dmadyn_dst),
                            reinterpret_cast<const void*>(k_acc),
                            reinterpret_cast<const void*>(k_onehot)};
   for (const void* kernel : kernels) {
@@ -335,7 +359,7 @@ int launch(void (*kernel)(Params...), unsigned grid, unsigned threads, size_t sm
   return static_cast<int>(cudaGetLastError());
 }
 
-// A launch of one of the five kernels of big_smem_ready.
+// A launch of one of the three kernels of big_smem_ready.
 template <typename... Params, typename... Args>
 int launch_big(void (*kernel)(Params...), unsigned grid, size_t smem, void* stream,
                Args... args) {
@@ -343,10 +367,21 @@ int launch_big(void (*kernel)(Params...), unsigned grid, size_t smem, void* stre
   return e != 0 ? e : launch(kernel, grid, kThreads, smem, stream, args...);
 }
 
-// K >= size rows of w, B a multiple of 4 -> out [size, B].
+// copy_rows' grid for `size` rows of B floats (B a multiple of 4).
+unsigned copy_grid(int size, int B, int threads) {
+  return blocks_of(static_cast<int64_t>(size) * (B / 4), threads);
+}
+
+// K >= size rows of w -> out [size, B].
 int vmem(const float* w, float* out, int r, int K, int size, int B, void* stream) {
-  const unsigned grid = blocks_of(static_cast<int64_t>(size) * (B / 4), kCopyThreads);
-  return launch(k_vmem, grid, kCopyThreads, 0, stream, w, out, r, K, size, B);
+  return launch(k_vmem, copy_grid(size, B, kCopyThreads), kCopyThreads, 0, stream, w, out, r, K,
+                size, B);
+}
+
+// 8 rows from row r, or from the start of r's group of 8 -> out [8, B].
+int copy8(bool group, const float* w, float* out, int64_t r, int threads, int B, void* stream) {
+  return launch(group ? k_dmagrp : k_dma8, copy_grid(8, B, threads), threads, 0, stream, w, out,
+                r, B);
 }
 
 }  // namespace
@@ -355,12 +390,24 @@ extern "C" {
 
 // w + r*B .. w + (r+8)*B -> out [8, B]; the caller checks 0 <= r <= S - 8.
 int fd_probe_dma8(const float* w, float* out, long long r, int B, void* stream) {
-  return launch_big(k_dma8, 1, 8 * B * sizeof(float), stream, w, out, r, B);
+  return copy8(false, w, out, r, kCopyThreads, B, stream);
 }
 
 // rows 8*(r div 8) .. +8 -> out [8, B]; the caller checks the group.
 int fd_probe_dmagrp(const float* w, float* out, long long r, int B, void* stream) {
-  return launch_big(k_dmagrp, 1, 8 * B * sizeof(float), stream, w, out, r, B);
+  return copy8(true, w, out, r, kCopyThreads, B, stream);
+}
+
+// Either of the two at `threads` a block (a multiple of 32 up to 1024), for
+// the sweep that chose kCopyThreads.
+int fd_probe_copy8_threads(const float* w, float* out, long long r, int group, int threads,
+                           int B, void* stream) {
+  return copy8(group != 0, w, out, r, threads, B, stream);
+}
+
+// The empty kernel on a grid of `grid` blocks of `threads`.
+int fd_probe_empty(int grid, int threads, void* stream) {
+  return launch(k_empty, grid, threads, 0, stream);
 }
 
 // rows 8r .. 8r+8 -> scratch rows 8j .. 8j+8 (j = r1 mod 4) of a zeroed
@@ -378,12 +425,14 @@ int fd_probe_vmem8(const float* w, float* out, int r, int K, int B, void* stream
   return vmem(w, out, r, K, 8, B, stream);
 }
 
-// The same function by TMA, `chunk` bytes a block: a multiple of 16, at most
-// 32 KB (with the barrier it stays under the 48 KB default).
-int fd_probe_vmem_bulk(const float* w, float* out, int r, int K, int size, int chunk, int B,
-                       void* stream) {
+// The function of vmemrow or vmem8 (start 0: r clamped into the K-row block),
+// of dma8 (start 1, size 8) or of dmagrp (start 2, size 8) by TMA, `chunk`
+// bytes a block: a multiple of 16, at most 32 KB (with the barrier it stays
+// under the 48 KB default).  The caller checks an unclamped source.
+int fd_probe_bulk(const float* w, float* out, long long r, int K, int size, int start,
+                  int chunk, int B, void* stream) {
   const unsigned grid = blocks_of(static_cast<int64_t>(size) * B * sizeof(float), chunk);
-  return launch(k_vmem_bulk, grid, kBulkThreads, chunk, stream, w, out, r, K, size, B,
+  return launch(k_bulk, grid, kBulkThreads, chunk, stream, w, out, r, K, size, B, start,
                 static_cast<uint32_t>(chunk));
 }
 

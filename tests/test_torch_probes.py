@@ -110,6 +110,30 @@ def test_random_data_equals_interpret_reference(jax_script, name, rows):
     np.testing.assert_array_equal(got, _jax_case(jax_script, name, w, rows))
 
 
+@pytest.mark.parametrize("b", [4, 100, 8192])
+@pytest.mark.parametrize("name,r", [("dma8", 0), ("dma8", 13), ("dma8", 56), ("dmagrp", 13),
+                                    ("dmagrp", 63)])
+def test_copies_of_any_width_equal_interpret_reference(jax_script, name, r, b):
+    """The two copies take any width that is a multiple of 4, from one
+    16-byte piece to rows wider than a block's shared memory.  Exact: a copy."""
+    w = np.random.default_rng(b + r).standard_normal((64, b)).astype(np.float32)
+    got = _case(name)(torch.from_numpy(w), torch.tensor((r, 0, 0, 0), dtype=torch.int32))
+    ref = _jax_case(jax_script, name, w, (r, 0, 0, 0))
+    assert got.shape == ref.shape == (8, b)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("residue", range(8))
+@pytest.mark.parametrize("group", [0, 5, RS // 8 - 1])
+def test_dmagrp_takes_the_group_of_any_row(jax_script, group, residue):
+    """r div 8 is the group of every r = 8 * group + residue.  Exact: a copy."""
+    rows = (8 * group + residue, 0, 0, 0)
+    w = np.random.default_rng(group).standard_normal((RS, 16)).astype(np.float32)
+    got = pm.case_dmagrp(torch.from_numpy(w), torch.tensor(rows, dtype=torch.int32)).numpy()
+    np.testing.assert_array_equal(got, w[8 * group:8 * group + 8])
+    np.testing.assert_array_equal(got, _jax_case(jax_script, "dmagrp", w, rows))
+
+
 def _clamp_edges(k, size):
     """The starts on either side of each edge of dynamic_slice's clamp."""
     return {"last": k - size, "last+1": k - size + 1, "k": k, "-1": -1, "-k": -k,
@@ -144,7 +168,7 @@ def test_slices_of_short_and_narrow_blocks_equal_interpret_reference(jax_script,
     np.testing.assert_array_equal(got, ref)
 
 
-@pytest.mark.parametrize("name", ["vmemrow", "vmem8"])
+@pytest.mark.parametrize("name", ["vmemrow", "vmem8", "dma8", "dmagrp"])
 def test_bulk_variant_is_the_same_function(name, monkeypatch):
     """On the CPU both run the one plain version; the variant checks its
     chunk size as well."""
@@ -179,6 +203,8 @@ def test_dmadyn_dst_other_offsets_read_zeroed_scratch(r1):
     ("dma8", (RS - 7, 0, 0, 0)), ("dma8", (-1, 0, 0, 0)),
     ("dmagrp", (RS, 0, 0, 0)), ("dmagrp", (-1, 0, 0, 0)),
     ("dmadyn_dst", (RS // 8, 0, 0, 0)), ("dmadyn_dst", (-1, 0, 0, 0)),
+    ("dma8_bulk", (RS - 7, 0, 0, 0)), ("dma8_bulk", (-1, 0, 0, 0)),
+    ("dmagrp_bulk", (RS, 0, 0, 0)), ("dmagrp_bulk", (-1, 0, 0, 0)),
 ])
 def test_copy_out_of_bounds_raises(name, rows):
     """The copies have no clamp: an out-of-range source raises on the host."""
@@ -187,9 +213,15 @@ def test_copy_out_of_bounds_raises(name, rows):
         _case(name)(w, torch.tensor(rows, dtype=torch.int32))
 
 
-@pytest.mark.parametrize("bad", ["w_f64", "w_ragged_rows", "w_1d", "rows_int64",
-                                 "rows_short", "meta_device"])
+BAD = ["w_f64", "w_ragged_rows", "w_1d", "rows_int64", "rows_short", "meta_device"]
+BULK_CASES = [pm.case_dma8_bulk, pm.case_dmagrp_bulk, pm.case_vmemrow_bulk, pm.case_vmem8_bulk]
+
+
+@pytest.mark.parametrize("bad", BAD + [f"{bad}-bulk" for bad in BAD])
 def test_wrapper_rejects_bad_arguments(bad):
+    """Every probe, and with ``-bulk`` every TMA variant, on one bad argument."""
+    bad, _, bulk = bad.partition("-")
+    cases = BULK_CASES if bulk else [case for _, case, _ in pm.CASES]
     w, rows = pm.probe_inputs("cpu", 64, 16)
     if bad == "w_f64":
         w = w.double()
@@ -203,9 +235,25 @@ def test_wrapper_rejects_bad_arguments(bad):
         rows = rows[:3]
     elif bad == "meta_device":
         w = w.to("meta")
-    for _, case, _ in pm.CASES:
+    for case in cases:
         with pytest.raises(ValueError):
             case(w, rows)
+
+
+def test_dmagrp_needs_whole_groups():
+    w = torch.zeros((12, 16), dtype=torch.float32)
+    for case in (pm.case_dmagrp, pm.case_dmagrp_bulk):
+        with pytest.raises(ValueError, match="groups of 8"):
+            case(w, torch.zeros(4, dtype=torch.int32))
+
+
+def test_dmadyn_dst_scratch_must_fit_shared_memory():
+    """The one copy that still stages its rows: 32 rows of B floats beside
+    the kernel's barrier, in a block's 227 KB."""
+    rows = torch.zeros(4, dtype=torch.int32)
+    assert pm.case_dmadyn_dst(torch.zeros((8, 1812), dtype=torch.float32), rows).shape == (8, 1812)
+    with pytest.raises(ValueError, match="shared memory"):
+        pm.case_dmadyn_dst(torch.zeros((8, 1816), dtype=torch.float32), rows)
 
 
 def test_cpu_path_does_not_count_launches():
