@@ -40,7 +40,12 @@ output line or more each:
    path.  Each bound that tells the accumulation type is shown to reject a
    control, the plain version accumulating in the storage type;
 7. each of the nine row-access probe kernels against its plain version, on
-   the JAX script's data and on random data; the two slice kernels
+   the JAX script's data and on random data; acc at every edge of its clamp
+   in each of its four rows and in all four at once, and both designs of
+   onehot (the select as a read, exact; on tensor cores in TF32, within
+   2^-11 relative) at every residue mod 8 about 0, 8 and K - 8, on blocks of
+   8 to 300 rows and widths from one 16-byte piece to 16384 columns, acc bit
+   for bit; the two slice kernels
    (vmemrow, vmem8) and their TMA variants also at every edge of the
    start's clamp, on blocks shorter than 256 rows and at widths from one
    16-byte piece to 16384 columns; the two copies (dma8, dmagrp) and their
@@ -50,11 +55,12 @@ output line or more each:
    offsets pass 2^32;
 8. the probe path: ``benchmarks.probe_mosaic_caps.main()`` with every probe
    count at 0 before it, its output against the JAX script's values; then
-   every probe's kernel, plain version and, where there is one, the one
-   PyTorch call that computes its function, each on two clocks: device time
-   (the profiler's busy time) and per-call time (CUDA events around one
-   call on an idle stream, the host's launch work included); the four copy
-   kernels beside their TMA variants on the device clock; the two copies at
+   every probe's kernel, plain version and the one PyTorch call that
+   computes its function (``probe_library_calls``), each on two clocks:
+   device time (the profiler's busy time) and per-call time (CUDA events
+   around one call on an idle stream, the host's launch work included); the
+   four copy kernels beside their TMA variants, acc, and onehot's two designs
+   in turns, alone and 20 back to back on the device clock; the two copies at
    64, 128 and 256 threads a block; a launch's floor, the time of an empty
    kernel on three clocks, and every probe's device time over it;
 9. ``benchmarks.probe_gather.run()``: the streaming roofline and the
@@ -88,7 +94,10 @@ STORE_BITS = {"float32": 23, "bfloat16": 7}   # stored mantissa bits
 # path accumulating in the storage type lies outside it (the controls)
 PAIR_SLICE_TOL = 2.0 ** -23
 PAIR_GRAPH_TOL = 2.0 ** -8
-TF32_REL = 2.0 ** -11   # one-hot probe: one term of w rounded to TF32
+TF32_REL = 2.0 ** -11   # one-hot select on tensor cores: one term of w rounded to TF32
+# relative bound of each onehot design against the float32 product: the
+# select as a read (case_onehot, of record) is exact, the TF32 product not
+ONEHOT_REL = {"onehot": 0.0, "onehot_mma": TF32_REL}
 TRACE_TRIES = 5         # profiler traces taken before one without device time fails
 QUEUED_REPS = 5         # timed repeats of queued_ms, of which the median counts
 QUEUED_BUCKETS = 16     # buckets timed in one queued_ms call
@@ -116,6 +125,38 @@ PROBE_LINE = {"dma8": 39, "dmagrp": 61, "vmemrow": 82, "vmem8": 100, "acc": 122,
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def probe_library_calls(w, rows):
+    """The one PyTorch call that computes each row-access probe's function
+    on the probe's ``w`` and int32 ``rows``: name -> a call of no arguments.
+    The host's row arithmetic and the index tensors are made here, before
+    any call.  Timed beside the kernels; nothing in the port calls them."""
+    import torch
+    import torch.nn.functional as F
+    from feynmandiagram_tpu_torch.benchmarks import probe_mosaic_caps as pm
+    r = [int(x) for x in rows.tolist()]
+    dev, blk = w.device, w[:pm.BLOCK_ROWS]
+    k = blk.shape[0]
+    s1, s8, g8, j8, d0 = (pm._slice_start(r[0], k, 1), pm._slice_start(r[0], k, 8),
+                          8 * (r[0] // 8), r[0] % 8, 8 * r[0])
+    sel = (torch.arange(k, device=dev)[None, :]
+           == r[0] + torch.arange(8, device=dev)[:, None]).to(w.dtype)
+    acc_rows = torch.tensor([pm._slice_start(x, k, 1) for x in r], device=dev)
+    bag = torch.zeros(1, dtype=torch.long, device=dev)   # one bag: the four rows
+    take_rows = torch.tensor(pm.TAKE_ROWS, device=dev)
+    # dmadyn_dst's 8 rows land in scratch[0:8] only where rows[1] mod 4 == 0
+    dyn_dst = ((lambda: w[d0:d0 + 8].clone()) if r[1] % 4 == 0 else
+               (lambda: torch.zeros((8, w.shape[1]), dtype=w.dtype, device=dev)))
+    return {"dma8": lambda: w[r[0]:r[0] + 8].clone(),
+            "dmagrp": lambda: w[g8:g8 + 8].clone(),
+            "vmemrow": lambda: blk[s1:s1 + 1].clone(),
+            "vmem8": lambda: blk[s8:s8 + 8].clone(),
+            "acc": lambda: F.embedding_bag(acc_rows, blk, bag, mode="sum"),
+            "onehot": lambda: torch.matmul(sel, blk),
+            "dynwrite": lambda: F.pad(blk[0:1], (0, 0, j8, 7 - j8)),
+            "dmadyn_dst": dyn_dst,
+            "take": lambda: torch.index_select(blk, 0, take_rows)}
 
 
 def main() -> None:
@@ -791,14 +832,14 @@ def main() -> None:
                 got, ref = case(wr, rows_t(r)), plain(wr, rows_t(r))
                 torch.cuda.synchronize()
                 d = (got - ref).abs()
-                bound = TF32_REL * ref.abs() if name == "onehot" else torch.zeros_like(ref)
-                if got.shape != ref.shape or bool((d > bound).any()):
+                if got.shape != ref.shape or not bool((d <= ONEHOT_REL.get(name, 0.0)
+                                                       * ref.abs()).all()):
                     fail(f"probe {name} on random data {S}x{B}, rows {r}: max|diff| "
                          f"{d.max().item():.3e}")
                 err, n = max(err, d.max().item()), n + 1
         probe_err[name] = err
         print(f"probe: {name} kernel = plain on the JAX data and {n} random cases "
-              f"({'within 2^-11 relative, TF32' if name == 'onehot' else 'exact'}), "
+              f"({'within 2^-11 relative, TF32' if ONEHOT_REL.get(name) else 'exact'}), "
               f"max|diff| {err:.3e}", flush=True)
     out_of_range = (("dma8", (4089,)), ("dma8", (-1,)), ("dmagrp", (4096,)), ("dmagrp", (-1,)),
                     ("dma8_bulk", (4089,)), ("dmagrp_bulk", (4096,)), ("dmadyn_dst", (512,)))
@@ -817,6 +858,46 @@ def main() -> None:
                 wr, rows_t(r))):
             fail(f"probe dmadyn_dst at B 1812, rows {r}: not the plain version's rows")
     print("probe: dmadyn_dst = plain at B 1812, the widest scratch a block holds", flush=True)
+    # acc: every edge of the clamp in each of its rows and in all four; both
+    # designs of onehot: every residue mod 8 about 0, 8 and K - 8, and starts
+    # that select nothing; blocks of fewer than 256 rows, widths from one
+    # 16-byte piece up
+    onehot_designs = (pm.case_onehot, pm.case_onehot_mma)   # of record, variant
+    onehot_rel = {fn: ONEHOT_REL[fn.__name__[len("case_"):]] for fn in onehot_designs}
+    onehot_err = {fn: 0.0 for fn in onehot_designs}
+    n_acc = n_onehot = 0
+    for S in (8, 100, 256, 300):
+        k = min(pm.BLOCK_ROWS, S)
+        edges = (k - 1, k, -1, -k, -k - 1, 2 ** 31 - 1, -2 ** 31)   # the clamp's, size 1
+        base = (k // 3, k - 1, 0, k // 2)
+        acc_rows = ([base[:p] + (e,) + base[p + 1:] for p in range(4) for e in edges]
+                    + [(e,) * 4 for e in edges])
+        onehot_starts = sorted({a + d for a in (0, 8, k - 8) for d in range(-8, 8)}
+                               | {-8, k, 2 ** 31 - 1})
+        for B in (4, 100, 512, 4096, 16384):
+            wr = torch.randn((S, B), generator=dev_gen, device=dev)
+            for r in acc_rows:
+                got, ref = pm.case_acc(wr, rows_t(r)), pm.case_acc_plain(wr, rows_t(r))
+                if got.shape != ref.shape or not torch.equal(got.view(torch.int32),
+                                                             ref.view(torch.int32)):
+                    fail(f"probe acc on {S}x{B}, rows {r}: not the plain version's bits")
+                n_acc += 1
+            for r in onehot_starts:
+                ref = pm.case_onehot_plain(wr, rows_t((r,)))
+                for fn in onehot_designs:
+                    got = fn(wr, rows_t((r,)))
+                    d = (got - ref).abs()
+                    if got.shape != ref.shape or not bool((d <= onehot_rel[fn]
+                                                           * ref.abs()).all()):
+                        fail(f"probe {fn.__name__} on {S}x{B}, start {r}: max|diff| "
+                             f"{d.max().item():.3e} (limit {onehot_rel[fn]:g} relative)")
+                    onehot_err[fn] = max(onehot_err[fn], d.max().item())
+                n_onehot += 1
+    print(f"probe: acc = plain bit for bit on {n_acc} cases (each clamp edge in each row and in "
+          f"all four) x S 8, 100, 256, 300 x B 4 to 16384; onehot on {n_onehot} starts (every "
+          f"residue mod 8 about 0, 8 and K - 8; -8, K, 2^31 - 1) of the same grid: "
+          + ", ".join(f"{fn.__name__} max|diff| {e:.3e} (limit {onehot_rel[fn]:g} relative)"
+                      for fn, e in onehot_err.items()), flush=True)
     # the two slice kernels and their TMA variants: every edge of the clamp,
     # blocks of fewer than 256 rows, widths from one 16-byte piece up
     slices = ((1, pm.case_vmemrow, pm.case_vmemrow_bulk, pm.case_vmemrow_plain),
@@ -898,22 +979,10 @@ def main() -> None:
             fail(f"probe path: {name} ok={res['ok']} first={res.get('first')} "
                  f"launches={probe_launches[name]}")
     print(f"probe path: all nine cases OK, launches {probe_launches}", flush=True)
-    # the one PyTorch call that computes a probe's function, where there is
-    # one.  acc (a gather and a sum), dynwrite and dmadyn_dst (a fill and a
-    # copy) take two calls each: none
+    # the one PyTorch call that computes each probe's function
     r_p = [int(r) for r in rows_p.tolist()]
-    blk = w_p[:pm.BLOCK_ROWS]
-    sel = (torch.arange(pm.BLOCK_ROWS, device=dev)[None, :]
-           == r_p[0] + torch.arange(8, device=dev)[:, None]).float()
-    take_idx = torch.tensor(pm.TAKE_ROWS, device=dev)
-    g8 = 8 * (r_p[0] // 8)
-    library_calls = {
-        "dma8": lambda: w_p[r_p[0]:r_p[0] + 8].clone(),
-        "dmagrp": lambda: w_p[g8:g8 + 8].clone(),
-        "vmemrow": lambda: blk[r_p[0]:r_p[0] + 1].clone(),
-        "vmem8": lambda: blk[r_p[0]:r_p[0] + 8].clone(),
-        "onehot": lambda: torch.matmul(sel, blk),
-        "take": lambda: torch.index_select(blk, 0, take_idx)}
+    library_calls = probe_library_calls(w_p, rows_p)
+
     def per_call_ms(fns, rounds=8):
         """median_ms of each of fns (events around one call on an idle
         stream, so mostly the host's launch work), taken in turns there and
@@ -929,15 +998,15 @@ def main() -> None:
     probe_dev, probe_call = {}, {}
     for _, case, plain in pm.CASES:
         name = case.__name__[len("case_"):]
-        call = library_calls.get(name)
-        if call is not None and not torch.equal(call(), case(w_p, rows_p)):
+        call = library_calls[name]
+        if not torch.equal(call(), case(w_p, rows_p)):
             fail(f"probe {name}: its library call gives another result than the kernel")
-        fns = [lambda: case(w_p, rows_p), lambda: plain(w_p, rows_p)] + ([call] if call else [])
-        probe_dev[name] = ([busy_ms(fn, n=20) for fn in fns] + [None])[:3]
-        probe_call[name] = (per_call_ms(fns) + [None])[:3]
+        fns = [lambda: case(w_p, rows_p), lambda: plain(w_p, rows_p), call]
+        probe_dev[name] = [busy_ms(fn, n=20) for fn in fns]
+        probe_call[name] = per_call_ms(fns)
 
     def us(t):
-        return "none" if t is None else f"{1e3 * t:.2f}"
+        return f"{1e3 * t:.2f}"
 
     print("probe device time per call, kernel / plain / library call, us: " + ", ".join(
         f"{name} {' / '.join(map(us, probe_dev[name]))}" for name in PROBE_LINE)
@@ -961,6 +1030,25 @@ def main() -> None:
                         f"chunks of " + ", ".join(bulk_us) + "; back to back kernel / plain / "
                         f"library call {' / '.join(map(us, queued))}")
     pm.BULK_CHUNK_BYTES = chunk_bytes
+    # acc and onehot's two designs (in turns there and back, twice: the
+    # median of four readings each), and 20 calls back to back
+    acc_q = [queued_ms(fn, n=20) for fn in (lambda: pm.case_acc(w_p, rows_p),
+                                            lambda: pm.case_acc_plain(w_p, rows_p),
+                                            library_calls["acc"])]
+    variants.append(f"acc gather-sum {us(probe_dev['acc'][0])}, "
+                    f"{us(busy_ms(lambda: pm.case_acc(w_p, rows_p), n=20))}; back to back "
+                    f"kernel / plain / library call {' / '.join(map(us, acc_q))}")
+    seen = {fn: [] for fn in onehot_designs}
+    for fn in [*onehot_designs, *reversed(onehot_designs)] * 2:
+        seen[fn].append(busy_ms(lambda fn=fn: fn(w_p, rows_p), n=20))
+    onehot_dev = {fn: float(np.median(v)) for fn, v in seen.items()}
+    onehot_q = [queued_ms(lambda fn=fn: fn(w_p, rows_p), n=20) for fn in onehot_designs]
+    onehot_q += [queued_ms(fn, n=20) for fn in (lambda: pm.case_onehot_plain(w_p, rows_p),
+                                                library_calls["onehot"])]
+    variants.append("onehot " + ", ".join(
+        f"{fn.__name__} {us(t)} ({', '.join(map(us, seen[fn]))})" for fn, t in onehot_dev.items())
+        + f"; back to back {' / '.join(fn.__name__ for fn in onehot_designs)} / plain / library "
+        f"call {' / '.join(map(us, onehot_q))}")
     print("probe variants, device us per call: " + "; ".join(variants) + f"  [{smi}]",
           flush=True)
     # the two copies at other block sizes, through the library's own entry
@@ -1042,6 +1130,11 @@ def main() -> None:
     phase("gather probe")
 
     fused, bucketed = times["fused"], times["bucketed"]
+    # onehot's other design, timed in turns with the kernel of record
+    variant = onehot_designs[1]
+    extra = {"onehot": {"variant": {
+        "name": variant.__name__, "device_ms": onehot_dev[variant],
+        "record_device_ms": onehot_dev[onehot_designs[0]], "max_abs_err": onehot_err[variant]}}}
     report = {"kernels": [{
         "name": "bucket_gather_reduce", "route": "cuda",
         "source": "feynmandiagram_tpu_torch/csrc/bucket_gather_reduce.cu",
@@ -1064,7 +1157,7 @@ def main() -> None:
             "bound_ms": probe_bound[name][0], "bound_by": probe_bound[name][1],
             "library_ms": probe_call[name][2], "device_ms": probe_dev[name][0],
             "plain_device_ms": probe_dev[name][1], "library_device_ms": probe_dev[name][2],
-            "floor_device_ms": floor_dev}
+            "floor_device_ms": floor_dev, **extra.get(name, {})}
             for name in PROBE_LINE]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,7 +16,9 @@ the same four functions by the design that was timed against that one and
 lost: a TMA bulk load and bulk store through shared memory,
 ``BULK_CHUNK_BYTES`` a block (in one chunk, the TPU kernels' async copy into
 scratch and out of it).  They are kept so that the two can be timed side by
-side.
+side.  ``case_onehot_mma`` likewise computes onehot's function by the design
+that was timed against its kernel of record: the select as a TF32 product on
+tensor cores over the one or two k8-blocks that hold the selected rows.
 
 For each case there is a wrapper ``case_<name>(w, rows)`` and a plain
 PyTorch version ``case_<name>_plain(w, rows)``.  ``w`` is a float32 ``[S,
@@ -64,7 +66,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # per entry fd_probe_<name>: the arguments between (w, out) and (B, stream)
 _ENTRY_ARGS = {"dma8": (_L,), "dmagrp": (_L,), "dmadyn_dst": (_L, _I),
                "vmemrow": (_I, _I), "vmem8": (_I, _I), "bulk": (_L, _I, _I, _I, _I),
-               "acc": (_I,) * 5, "onehot": (_I, _I), "dynwrite": (_I,), "take": (),
+               "acc": (_I,) * 5, "onehot": (_I, _I), "onehot_mma": (_I, _I), "dynwrite": (_I,),
+               "take": (),
                # measuring tools: dma8 (group 0) or dmagrp (1) at a given
                # block size, for the sweep that chose the kernels'
                "copy8_threads": (_L, _I, _I)}
@@ -229,8 +232,6 @@ def _args_acc(s, b, r):
 
 def _args_onehot(s, b, r):
     k = _block_rows(s, 8, "onehot")
-    if k % 8:
-        raise ValueError(f"onehot: the block's {k} rows are not a multiple of 8")
     # any start outside [-8, k] selects no row; clamping keeps r + i in int32
     return (min(max(r[0], -8), k), k)
 
@@ -334,6 +335,9 @@ case_vmemrow_bulk = _wrapper("vmemrow_bulk", case_vmemrow_plain, 1,
                              _args_bulk(0, 1, _args_vmemrow), entry="bulk")
 case_vmem8_bulk = _wrapper("vmem8_bulk", case_vmem8_plain, 8, _args_bulk(0, 8, _args_vmem8),
                            entry="bulk")
+# onehot's select on tensor cores (TF32 mma.sync over only the k-steps that
+# can hold a 1), kept to be timed beside case_onehot, the select as a read
+case_onehot_mma = _wrapper("onehot_mma", case_onehot_plain, 8, _args_onehot)
 
 # (label, wrapper, plain version), in the JAX script's order
 CASES: Sequence[Tuple[str, Callable, Callable]] = (
@@ -342,8 +346,10 @@ CASES: Sequence[Tuple[str, Callable, Callable]] = (
     ("dyn 1-row read of w[:256], only that row moved", case_vmemrow, case_vmemrow_plain),
     ("dyn 8-row read of w[:256] unaligned, only those rows moved", case_vmem8,
      case_vmem8_plain),
-    ("accumulate dyn rows into row 0", case_acc, case_acc_plain),
-    ("one-hot tensor-core select", case_onehot, case_onehot_plain),
+    ("accumulate 4 dyn rows of w[:256] into row 0, only those rows read", case_acc,
+     case_acc_plain),
+    ("one-hot select of 8 rows of w[:256] as a read, only those rows read", case_onehot,
+     case_onehot_plain),
     ("dyn-position 1-row write", case_dynwrite, case_dynwrite_plain),
     ("bulk copy dyn src + dyn dst offsets", case_dmadyn_dst, case_dmadyn_dst_plain),
     ("static take in shared memory", case_take, case_take_plain),

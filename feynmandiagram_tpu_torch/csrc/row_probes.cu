@@ -12,15 +12,16 @@
 //   dmagrp        k_dmagrp, :61                            k_dmagrp: copy_rows from row 8*(r div 8)
 //   vmemrow       k_vmemrow, :82                           k_vmem, size 1: copy_rows, row r of w[:K]
 //   vmem8         k_vmem8, :100                            k_vmem, size 8: rows r..r+8 of it
-//   acc           k_acc, :122                              k_acc: sum of 4 rows of a staged w[:K]
-//   onehot        k_onehot, :143                           k_onehot: sel @ w[:K] on tensor cores
+//   acc           k_acc, :122                              k_acc: 0 + w[s0] + .. + w[s3], 4 loads
+//   onehot        k_onehot, :143                           k_onehot: rows r..r+8 of w[:K] read
+//                                                          (k_onehot_mma: sel @ those rows, TF32)
 //   dynwrite      k_dynwrite, :162                         k_dynwrite: zeros, row (r mod 8) <- w[0]
 //   dmadyn_dst    k_dmadyn_dst, :185                       k_dmadyn_dst: bulk copy to a dynamic
 //                                                          offset of a zeroed scratch
 //   take          k_take, :205                             k_take: rows {3,1,4,1,5,9,2,6}
 //
-// What bounds them: at the probe's shapes (S = 4096, B = 512) each moves a
-// few KB to 512 KB in one launch, so the launch and the first access's
+// What bounds them: at the probe's shapes (S = 4096, B = 512) each moves 2
+// to 64 KB in one launch, so the launch and the first access's
 // latency bound every one of them, not bandwidth.  So a design counts the
 // dependent memory latencies and the host calls of a launch, not bytes per
 // second; a gridded version that reads many rows per launch at the copy
@@ -59,19 +60,49 @@
 //   leaves the other scratch rows uninitialised (its output is undefined
 //   unless rows[1] mod 4 == 0); here the scratch is zero-filled first, so
 //   those output rows are 0.
-// - acc, onehot: they read several or all rows of the [K = 256, B] block
-//   (512 KB at B = 512, more than a block's 227 KB of shared memory), so
-//   each block stages a [K, 64]-column tile (72 KB with the row stride
-//   padded to 72 floats, dynamic shared memory above 48 KB) over a grid on
-//   B, and reads the dynamic rows from shared memory.
-// - Row starts of vmemrow, vmem8, acc and onehot are taken as
-//   lax.dynamic_slice takes them in the reference: a negative start counts
-//   once from the end, then the start is clamped into [0, K - size] (rows
-//   256 and 1031 of the probe lie outside the block).
-// - onehot: the MXU select becomes mma.sync m16n8k8 TF32 (M padded from 8
-//   to 16 with zero rows of the selector).  The selector's 0 and 1 are exact
-//   in TF32; w is rounded to TF32, so a result is exact for |integers| <
-//   2^11 and within 2^-11 relative of w otherwise (one nonzero term).
+// - acc: out[0] = 0 + w[s0] + w[s1] + w[s2] + w[s3] over the [K = 256, B]
+//   block, s_i the clamped slice start of rows[i].  The TPU kernel kept the
+//   whole block resident in VMEM and added four rows of it; carried over
+//   as it was, that made 8 blocks stage 512 KB through shared memory for a
+//   2 KB row, and the 72 KB tiles needed an attribute call (cudaGetDevice)
+//   before each launch.  Bound by bytes: 5 rows of traffic, nanoseconds, so met by a
+//   launch's floor.  The design reads only the four rows: a thread per
+//   16-byte piece of the row (for B = 512 one block of 128 working
+//   threads), the four starts computed on the device, all four
+//   ld.global.nc.v4 issued before the first add, so the kernel is one memory
+//   latency deep like copy_rows, and one st.global.v4.  The adds run in the
+//   reference's order from 0 (0 + -0.0 gives +0.0, as there), so the result
+//   is the plain version's bit for bit.
+// - onehot: out[i] = sum_k [k == r + i] * w[k] for i < 8, k < K: row r + i of
+//   the block, or zeros where r + i lies outside [0, K).  The start is not
+//   clamped: rows outside the block select nothing (the wrapper clamps r into
+//   [-8, K], which selects the same rows and keeps r + i in int32).  The TPU
+//   kernel ran the whole [8, K] x [K, B] product on the MXU over the resident
+//   block; carried over as it was, that is 32 mma.sync k-steps over staged
+//   tiles, at most two of which can hold a 1.  Bound by bytes (16 rows of traffic; the
+//   product's 2 * 8 * K * B operations are 4 ns at the TF32 rate), met by a
+//   launch's floor.  Two designs read only rows r .. r + 8:
+//   k_onehot (the kernel of record) takes the select as a read: copy_rows'
+//     shape over the 8 x B output, a 16-byte piece a thread, with a per-row
+//     predicate and no load for a row outside the block.  No tensor cores;
+//     exact (on finite data the product has one nonzero term: equal as
+//     values, though a -0.0 reads +0.0 in the product).
+//   k_onehot_mma keeps the select on tensor cores, over only the k8-blocks
+//     8 * (r div 8) and the next, where they hold a row of r .. r + 8 inside
+//     [0, K): one or two mma.sync m16n8k8 TF32 steps (M padded from 8 to 16
+//     with zero rows of the selector), a warp per 8 output columns, the B
+//     fragments loaded straight from global memory.  The selector's 0 and 1
+//     are exact in TF32; w is rounded to TF32, so a result is exact for
+//     |integers| < 2^11 and within 2^-11 relative of w otherwise.
+//   Neither lets a non-finite value in an unselected row reach the output, as
+//   the full product would (0 * inf): neither reads such a row (k_onehot_mma
+//   zeroes its fragments outside rows r .. r + 8).  In k_onehot_mma, as in
+//   the product, a non-finite selected row still makes NaN of the other
+//   output rows in its columns; k_onehot copies it to its own row alone.
+// - Row starts of vmemrow, vmem8 and acc are taken as lax.dynamic_slice takes
+//   them in the reference: a negative start counts once from the end, then
+//   the start is clamped into [0, K - size] (rows 256 and 1031 of the probe
+//   lie outside the block).
 // - dynwrite, take: one thread per column writes 8 rows; take's static row
 //   list lives in __constant__ memory (a warp-uniform broadcast).
 //
@@ -90,8 +121,6 @@ constexpr int kThreads = 256;
 constexpr int kCopyThreads = 256;            // copy_rows: a block moves 4 KB
 constexpr int kBulkThreads = 32;             // k_bulk: one thread works, a warp waits
 constexpr int kMaxDevices = 64;
-constexpr int kTileCols = 64;                // columns of a staged tile
-constexpr int kTileStride = kTileCols + 8;   // padded row stride, in floats
 
 __constant__ int kTakeRows[8] = {3, 1, 4, 1, 5, 9, 2, 6};
 
@@ -178,21 +207,6 @@ __device__ __forceinline__ void store_out(float* out, const float* src, int64_t 
   }
 }
 
-// Stage columns col0 .. col0 + kTileCols of w's first K rows into tile
-// (row stride kTileStride); columns past B are zero.
-__device__ void stage_tile(float* tile, const float* w, int K, int B, int col0) {
-  constexpr int kVecs = kTileCols / 4;
-  for (int i = threadIdx.x; i < K * kVecs; i += blockDim.x) {
-    const int row = i / kVecs, c = (i % kVecs) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (col0 + c < B) {
-      v = *reinterpret_cast<const float4*>(w + static_cast<int64_t>(row) * B + col0 + c);
-    }
-    *reinterpret_cast<float4*>(tile + row * kTileStride + c) = v;
-  }
-  __syncthreads();
-}
-
 // out [size, B] = w[first : first + size], one contiguous range: a grid over
 // its float4s, a load and a store each.
 __device__ __forceinline__ void copy_rows(const float* w, float* out, int64_t first, int size,
@@ -244,20 +258,45 @@ __global__ void k_bulk(const float* w, float* out, int64_t r, int K, int size, i
   bulk_store(reinterpret_cast<char*>(out) + off, dyn_smem, bytes);
 }
 
+// The sum of four floats in the reference's order, from 0: no reassociation,
+// and 0 + -0.0 is +0.0.
+__device__ __forceinline__ float sum4_from_zero(float a, float b, float c, float d) {
+  float s = 0.f;
+  s = __fadd_rn(s, a);
+  s = __fadd_rn(s, b);
+  s = __fadd_rn(s, c);
+  return __fadd_rn(s, d);
+}
+
+// out [1, B] = 0 + w[s0] + w[s1] + w[s2] + w[s3], s_i = slice_start(r_i, K, 1):
+// a thread per 16-byte piece, the four loads in flight together.
 __global__ void k_acc(const float* w, float* out, int r0, int r1, int r2, int r3, int K,
                       int B) {
-  const int col0 = blockIdx.x * kTileCols;
-  stage_tile(dyn_smem, w, K, B, col0);
-  const int c = threadIdx.x;
-  if (c < kTileCols && col0 + c < B) {
-    // the reference's order: out = 0, then out += w[r_i] for i = 0..3
-    float acc = 0.f;
-    acc += dyn_smem[slice_start(r0, K, 1) * kTileStride + c];
-    acc += dyn_smem[slice_start(r1, K, 1) * kTileStride + c];
-    acc += dyn_smem[slice_start(r2, K, 1) * kTileStride + c];
-    acc += dyn_smem[slice_start(r3, K, 1) * kTileStride + c];
-    out[col0 + c] = acc;
+  const int64_t q = B / 4;   // 16-byte pieces of a row
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= q) return;
+  const float4* src = reinterpret_cast<const float4*>(w) + i;
+  const float4 a = __ldg(src + slice_start(r0, K, 1) * q);
+  const float4 b = __ldg(src + slice_start(r1, K, 1) * q);
+  const float4 c = __ldg(src + slice_start(r2, K, 1) * q);
+  const float4 d = __ldg(src + slice_start(r3, K, 1) * q);
+  reinterpret_cast<float4*>(out)[i] =
+      make_float4(sum4_from_zero(a.x, b.x, c.x, d.x), sum4_from_zero(a.y, b.y, c.y, d.y),
+                  sum4_from_zero(a.z, b.z, c.z, d.z), sum4_from_zero(a.w, b.w, c.w, d.w));
+}
+
+// out [8, B]: row i = w[r + i] where 0 <= r + i < K, else zeros; a grid over
+// the output's 16-byte pieces, a load (if the row is inside) and a store
+// each.  Piece i of the output is piece r * B/4 + i of w.
+__global__ void k_onehot(const float* w, float* out, int r, int K, int B) {
+  const int64_t q = B / 4;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= 8 * q) return;
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (i >= -static_cast<int64_t>(r) * q && i < static_cast<int64_t>(K - r) * q) {
+    v = __ldg(reinterpret_cast<const float4*>(w) + static_cast<int64_t>(r) * q + i);
   }
+  reinterpret_cast<float4*>(out)[i] = v;
 }
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
@@ -266,32 +305,46 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return y;
 }
 
-// out[i, :] = sum_k sel[i, k] * w[k, :], sel[i, k] = (k == r + i), i < 8.
-// Warp q of the block owns tile columns 8q .. 8q + 8; lane = 4 * g + t.
-// Fragments of m16n8k8 (PTX ISA, tf32): A a0 (g, t), a1 (g+8, t),
-// a2 (g, t+4), a3 (g+8, t+4); B b0 (k t, n g), b1 (k t+4, n g);
-// D d0 (g, 2t), d1 (g, 2t+1), d2 (g+8, 2t), d3 (g+8, 2t+1).
-__global__ void k_onehot(const float* w, float* out, int r, int K, int B) {
-  const int col0 = blockIdx.x * kTileCols;
-  stage_tile(dyn_smem, w, K, B, col0);
-  const int lane = threadIdx.x % 32, n0 = (threadIdx.x / 32) * 8;
-  const int g = lane / 4, t = lane % 4;
+// The same select on tensor cores: sel @ w[:K], sel[i, k] = (k == r + i),
+// i < 8, over only the k8-blocks kb = 8 * (r div 8) and kb + 8 that hold a
+// row of r .. r + 8 inside [0, K).  A warp owns output columns n0 .. n0 + 8;
+// lane = 4 * g + t.  Fragments of m16n8k8 (PTX ISA, tf32): A a0 (g, t),
+// a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4); B b0 (k t, n g), b1 (k t+4, n g);
+// D d0 (g, 2t), d1 (g, 2t+1), d2 (g+8, 2t), d3 (g+8, 2t+1).  Rows 8..15 of
+// sel are zero (a1 = a3 = 0).  Every B fragment is loaded before the first
+// mma; rows outside r .. r + 8 or [0, K) and columns past B read as 0.
+__global__ void k_onehot_mma(const float* w, float* out, int r, int K, int B) {
+  const int n0 = (blockIdx.x * blockDim.x + threadIdx.x) / 32 * 8;
+  if (n0 >= B) return;   // the whole warp
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4, col = n0 + g;
+  const int kb = r & ~7;   // 8 * (r div 8), floor division
   const uint32_t one = __float_as_uint(1.0f), zero = 0u;   // exact in tf32
+  uint32_t a[2][2], b[2][2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = kb + 8 * s + 4 * h + t;
+      const bool row = k >= r && k < r + 8 && k >= 0 && k < K;
+      b[s][h] = row && col < B ? to_tf32(__ldg(w + static_cast<int64_t>(k) * B + col)) : zero;
+      a[s][h] = k == r + g ? one : zero;
+    }
+  }
   float d[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < K; k0 += 8) {
-    const uint32_t a0 = (k0 + t == r + g) ? one : zero;
-    const uint32_t a2 = (k0 + t + 4 == r + g) ? one : zero;
-    const uint32_t b0 = to_tf32(dyn_smem[(k0 + t) * kTileStride + n0 + g]);
-    const uint32_t b1 = to_tf32(dyn_smem[(k0 + t + 4) * kTileStride + n0 + g]);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int k0 = kb + 8 * s;
+    if (k0 + 8 <= r || k0 >= r + 8 || k0 < 0 || k0 >= K) continue;   // the same in every lane
     asm volatile(
         "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a0), "r"(zero), "r"(a2), "r"(zero), "r"(b0), "r"(b1));
+        : "r"(a[s][0]), "r"(zero), "r"(a[s][1]), "r"(zero), "r"(b[s][0]), "r"(b[s][1]));
   }
-  const int c = col0 + n0 + 2 * t;   // rows 8..15 (d[2], d[3]) are padding
-  if (c < B) out[static_cast<int64_t>(g) * B + c] = d[0];
-  if (c + 1 < B) out[static_cast<int64_t>(g) * B + c + 1] = d[1];
+  const int c = n0 + 2 * t;   // even, and B is a multiple of 4: c < B means c + 1 < B
+  if (c < B) {
+    *reinterpret_cast<float2*>(out + static_cast<int64_t>(g) * B + c) = make_float2(d[0], d[1]);
+  }
 }
 
 __global__ void k_dynwrite(const float* w, float* out, int r, int B) {
@@ -326,27 +379,19 @@ cudaError_t raise_smem(const void* kernel, int device) {
                               optin - static_cast<int>(attr.sharedSizeBytes));
 }
 
-// The kernels that stage more than 48 KB get the attribute once per process
-// and device, not at every launch: the entries of those three call this
-// first, and the copies and the others never need it.
+// k_dmadyn_dst, the one kernel that stages more than 48 KB, gets the
+// attribute once per process and device, not at every launch.
 int big_smem_ready() {
   static bool ready[kMaxDevices] = {};
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (device < kMaxDevices && ready[device]) return 0;
-  const void* kernels[] = {reinterpret_cast<const void*>(k_dmadyn_dst),
-                           reinterpret_cast<const void*>(k_acc),
-                           reinterpret_cast<const void*>(k_onehot)};
-  for (const void* kernel : kernels) {
-    e = raise_smem(kernel, device);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  e = raise_smem(reinterpret_cast<const void*>(k_dmadyn_dst), device);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (device < kMaxDevices) ready[device] = true;
   return 0;
 }
-
-size_t tile_bytes(int K) { return static_cast<size_t>(K) * kTileStride * sizeof(float); }
 
 unsigned blocks_of(int64_t n, int64_t per_block) {
   return static_cast<unsigned>((n + per_block - 1) / per_block);
@@ -359,7 +404,7 @@ int launch(void (*kernel)(Params...), unsigned grid, unsigned threads, size_t sm
   return static_cast<int>(cudaGetLastError());
 }
 
-// A launch of one of the three kernels of big_smem_ready.
+// A launch of the kernel of big_smem_ready.
 template <typename... Params, typename... Args>
 int launch_big(void (*kernel)(Params...), unsigned grid, size_t smem, void* stream,
                Args... args) {
@@ -438,13 +483,19 @@ int fd_probe_bulk(const float* w, float* out, long long r, int K, int size, int 
 
 int fd_probe_acc(const float* w, float* out, int r0, int r1, int r2, int r3, int K, int B,
                  void* stream) {
-  return launch_big(k_acc, blocks_of(B, kTileCols), tile_bytes(K), stream, w, out, r0, r1, r2,
-                    r3, K, B);
+  return launch(k_acc, copy_grid(1, B, kCopyThreads), kCopyThreads, 0, stream, w, out, r0, r1,
+                r2, r3, K, B);
 }
 
-// K must be a multiple of 8.
+// The caller keeps r in [-8, K]: outside it no row is selected either way.
 int fd_probe_onehot(const float* w, float* out, int r, int K, int B, void* stream) {
-  return launch_big(k_onehot, blocks_of(B, kTileCols), tile_bytes(K), stream, w, out, r, K, B);
+  return launch(k_onehot, copy_grid(8, B, kCopyThreads), kCopyThreads, 0, stream, w, out, r, K,
+                B);
+}
+
+// The same function on tensor cores (k_onehot_mma), kThreads / 4 columns a block.
+int fd_probe_onehot_mma(const float* w, float* out, int r, int K, int B, void* stream) {
+  return launch(k_onehot_mma, blocks_of(B, kThreads / 4), kThreads, 0, stream, w, out, r, K, B);
 }
 
 int fd_probe_dynwrite(const float* w, float* out, int r, int B, void* stream) {

@@ -7,7 +7,9 @@ random cases replace.  The plain versions must equal it exactly: every case
 moves values or adds them in the reference's order, and the one-hot product
 has one nonzero term.  ``k_take`` does not trace in interpret mode
 ("captures constants"), so take is held to ``jnp.take``.  The CUDA kernels
-themselves are checked on the card by ``chip_smoke.py``.
+themselves are checked on the card by ``chip_smoke.py``, whose one-call
+library yardsticks (``probe_library_calls``) are held here to the same
+reference.
 """
 import functools
 import os
@@ -25,6 +27,7 @@ from jax.experimental import pallas as pl  # noqa: E402
 from feynmandiagram_tpu_torch.benchmarks import probe_gather as pg  # noqa: E402
 from feynmandiagram_tpu_torch.benchmarks import probe_mosaic_caps as pm  # noqa: E402
 from feynmandiagram_tpu_torch.ops import build  # noqa: E402
+import chip_smoke  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAMES = ["dma8", "dmagrp", "vmemrow", "vmem8", "acc", "onehot", "dynwrite", "dmadyn_dst"]
@@ -168,6 +171,94 @@ def test_slices_of_short_and_narrow_blocks_equal_interpret_reference(jax_script,
     np.testing.assert_array_equal(got, ref)
 
 
+ACC_BASE = (85, 255, 0, 255)   # rows inside the block, one of them repeated
+
+
+@pytest.mark.parametrize("where", [0, 1, 2, 3, "all"])
+@pytest.mark.parametrize("b", [4, 100, 8192])
+def test_acc_at_every_clamp_edge_equals_interpret_reference(jax_script, b, where):
+    """Each of acc's four rows at every edge of the clamp, the other three
+    inside the block (two of them the same row), or all four at the edge at
+    once.  w has rows past the block's 256, which no start may reach.  Bit
+    for bit: four adds from 0 in the reference's order."""
+    w = np.random.default_rng(b).standard_normal((300, b)).astype(np.float32)
+    for edge, r in _clamp_edges(pm.BLOCK_ROWS, 1).items():
+        rows = (r,) * 4 if where == "all" else ACC_BASE[:where] + (r,) + ACC_BASE[where + 1:]
+        got = pm.case_acc(torch.from_numpy(w), torch.tensor(rows, dtype=torch.int32)).numpy()
+        ref = _jax_case(jax_script, "acc", w, rows)
+        assert got.shape == ref.shape == (1, b), edge
+        np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32), err_msg=edge)
+
+
+def _onehot_block(k):
+    """w whose block w[:256] has k rows; for k = 256, rows past the block too."""
+    rows = k if k < pm.BLOCK_ROWS else 300
+    return np.random.default_rng(k).standard_normal((rows, 100)).astype(np.float32)
+
+
+@pytest.mark.parametrize("anchor", ["0", "8", "k-8"])
+@pytest.mark.parametrize("k", [8, 100, 256])
+def test_onehot_at_every_residue_equals_interpret_reference(jax_script, k, anchor):
+    """Starts r at every residue mod 8 on both sides of 0, 8 and k - 8: the
+    8 selected rows partly or wholly outside the block select zeros.  Both
+    designs' wrappers (the kernel of record and the tensor-core variant).
+    Exact: one nonzero term."""
+    w = _onehot_block(k)
+    a = {"0": 0, "8": 8, "k-8": k - 8}[anchor]
+    for r in range(a - 8, a + 8):
+        rows = torch.tensor((r, 0, 0, 0), dtype=torch.int32)
+        ref = _jax_case(jax_script, "onehot", w, (r, 0, 0, 0))
+        for case in (pm.case_onehot, pm.case_onehot_mma):
+            got = case(torch.from_numpy(w), rows).numpy()
+            assert got.shape == ref.shape == (8, 100)
+            np.testing.assert_array_equal(got, ref, err_msg=f"{case.__name__} r={r}")
+
+
+@pytest.mark.parametrize("r", [-8, "k", 2 ** 31 - 1, -2 ** 31])
+@pytest.mark.parametrize("k", [8, 100, 256])
+def test_onehot_start_that_selects_nothing_equals_interpret_reference(jax_script, k, r):
+    """Starts at or past the clamp into [-8, k]: all zeros, as in the
+    reference (whose r + i wraps in int32 at 2^31 - 1)."""
+    r = k if r == "k" else r
+    w = _onehot_block(k)
+    got = pm.case_onehot(torch.from_numpy(w), torch.tensor((r, 0, 0, 0), dtype=torch.int32))
+    ref = _jax_case(jax_script, "onehot", w, (r, 0, 0, 0))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert not ref.any()
+
+
+@pytest.mark.parametrize("name", NAMES + ["take"])
+def test_library_yardstick_equals_interpret_reference(jax_script, name):
+    """chip_smoke's one PyTorch call for each probe, on the probe's data."""
+    w, rows = pm.probe_inputs("cpu")
+    got = chip_smoke.probe_library_calls(w, rows)[name]().numpy()
+    if name == "take":
+        ref = np.asarray(jnp.take(jnp.asarray(w[:256].numpy()),
+                                  jnp.asarray(pm.TAKE_ROWS, jnp.int32), axis=0))
+    else:
+        ref = _jax_case(jax_script, name, w.numpy(), rows.numpy())
+    assert got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("rows", [(-7, 255, 1000, -1000), (250, -3, 3, 1), (3, 2, 7, 7),
+                                  (-300, 256, 0, 0)])
+def test_library_yardsticks_follow_the_rows(rows):
+    """Away from the probe's rows each yardstick computes its probe's
+    function: clamped and repeated rows (acc, vmemrow, vmem8), floor modulo
+    (dynwrite), a destination outside scratch[0:8] (dmadyn_dst).  w holds
+    rows 8 * r .. 8 * r + 8 for dmadyn_dst's r up to 250."""
+    w = torch.from_numpy(np.random.default_rng(7).standard_normal((2104, 16)).astype(np.float32))
+    rows = torch.tensor(rows, dtype=torch.int32)
+    calls = chip_smoke.probe_library_calls(w, rows)
+    names = ["vmemrow", "vmem8", "acc", "onehot", "dynwrite", "take"]
+    if rows[0] >= 0:
+        names += ["dma8", "dmagrp", "dmadyn_dst"]
+    for name in names:
+        plain = getattr(pm, f"case_{name}_plain")(w, rows)
+        assert torch.equal(calls[name]().view(torch.int32), plain.view(torch.int32)), name
+
+
 @pytest.mark.parametrize("name", ["vmemrow", "vmem8", "dma8", "dmagrp"])
 def test_bulk_variant_is_the_same_function(name, monkeypatch):
     """On the CPU both run the one plain version; the variant checks its
@@ -181,6 +272,17 @@ def test_bulk_variant_is_the_same_function(name, monkeypatch):
         monkeypatch.setattr(pm, "BULK_CHUNK_BYTES", chunk)
         with pytest.raises(ValueError, match="chunk"):
             bulk(w, rows)
+
+
+def test_onehot_mma_is_the_same_function():
+    """On the CPU the tensor-core variant runs onehot's plain version, with
+    the same checks and no launch."""
+    w, rows = pm.probe_inputs("cpu")
+    assert torch.equal(pm.case_onehot_mma(w, rows), pm.case_onehot(w, rows))
+    assert pm.case_onehot_mma.launches == 0
+    for bad_w, bad_rows in ((w.double(), rows), (w, rows.long()), (w[:4], rows)):
+        with pytest.raises(ValueError):
+            pm.case_onehot_mma(bad_w, bad_rows)
 
 
 def test_random_data_take():
