@@ -851,13 +851,31 @@ def main() -> None:
         fail(f"probe {name}: an out-of-range source {r} did not raise")
     print("probe: out-of-range copy sources raise: "
           + ", ".join(f"{name} {r[0]}" for name, r in out_of_range), flush=True)
-    # dmadyn_dst still stages its 32-row scratch: the widest B it takes
-    wr = rand_w(64, 1812, torch.float32)
-    for r in ((3, 0), (7, -4), (0, 1)):
-        if not torch.equal(pm.case_dmadyn_dst(wr, rows_t(r)), pm.case_dmadyn_dst_plain(
-                wr, rows_t(r))):
-            fail(f"probe dmadyn_dst at B 1812, rows {r}: not the plain version's rows")
-    print("probe: dmadyn_dst = plain at B 1812, the widest scratch a block holds", flush=True)
+    # dmadyn_dst: every rows[1] mod 4 on both sides of 0, from the first, a
+    # middle and the last group, at widths from one 16-byte piece to ones
+    # its old 32-row scratch refused (B > 1812); take on blocks of 10 rows up
+    n_dyn = n_take = 0
+    grid = [(S, B) for S in (8, 1000, 4096) for B in (4, 100, 512, 4096, 16384)]
+    for S, B in grid + [(64, 1816), (64, 32768)]:
+        wr = rand_w(S, B, torch.float32)
+        for r in sorted({0, S // 16, S // 8 - 1}):
+            for r1 in range(-5, 5):
+                got = pm.case_dmadyn_dst(wr, rows_t((r, r1)))
+                ref = pm.case_dmadyn_dst_plain(wr, rows_t((r, r1)))
+                if got.shape != ref.shape or not torch.equal(got, ref):
+                    fail(f"probe dmadyn_dst on {S}x{B}, rows {(r, r1)}: not the plain version's "
+                         f"rows")
+                n_dyn += 1
+    for S in (10, 100, 256, 300):
+        for B in (4, 100, 512, 4096, 16384):
+            wr = rand_w(S, B, torch.float32)
+            got, ref = pm.case_take(wr, rows_t((0,))), pm.case_take_plain(wr, rows_t((0,)))
+            if got.shape != ref.shape or not torch.equal(got, ref):
+                fail(f"probe take on {S}x{B}: not the plain version's rows")
+            n_take += 1
+    print(f"probe: dmadyn_dst = plain, exact, on {n_dyn} cases (rows[1] -5..4 x the first, a "
+          f"middle and the last group x S 8, 1000, 4096 x B 4 to 16384, and B 1816, 32768); take "
+          f"= plain, exact, on {n_take} (S 10, 100, 256, 300 x B 4 to 16384)", flush=True)
     # acc: every edge of the clamp in each of its rows and in all four; both
     # designs of onehot: every residue mod 8 about 0, 8 and K - 8, and starts
     # that select nothing; blocks of fewer than 256 rows, widths from one
@@ -1049,6 +1067,25 @@ def main() -> None:
         f"{fn.__name__} {us(t)} ({', '.join(map(us, seen[fn]))})" for fn, t in onehot_dev.items())
         + f"; back to back {' / '.join(fn.__name__ for fn in onehot_designs)} / plain / library "
         f"call {' / '.join(map(us, onehot_q))}")
+    # dmadyn_dst beside dma8, the copy body it now shares (in turns there and
+    # back, twice), and dmadyn_dst and take 20 back to back.  take's plain
+    # version copies its row list from the host, which waits for the device,
+    # so it cannot be queued: its back-to-back reading is left out
+    pair = (pm.case_dmadyn_dst, pm.case_dma8)
+    seen = {fn: [] for fn in pair}
+    for fn in [*pair, *reversed(pair)] * 2:
+        seen[fn].append(busy_ms(lambda fn=fn: fn(w_p, rows_p), n=20))
+    variants.append("dmadyn_dst beside dma8 " + ", ".join(
+        f"{fn.__name__} {us(float(np.median(v)))} ({', '.join(map(us, v))})"
+        for fn, v in seen.items()))
+    dyn_q = [queued_ms(fn, n=20) for fn in (lambda: pm.case_dmadyn_dst(w_p, rows_p),
+                                            lambda: pm.case_dmadyn_dst_plain(w_p, rows_p),
+                                            library_calls["dmadyn_dst"])]
+    take_q = [queued_ms(fn, n=20) for fn in (lambda: pm.case_take(w_p, rows_p),
+                                             library_calls["take"])]
+    variants.append(f"dmadyn_dst back to back kernel / plain / library call "
+                    f"{' / '.join(map(us, dyn_q))}; take back to back kernel / library call "
+                    f"{' / '.join(map(us, take_q))}")
     print("probe variants, device us per call: " + "; ".join(variants) + f"  [{smi}]",
           flush=True)
     # the two copies at other block sizes, through the library's own entry
@@ -1098,10 +1135,11 @@ def main() -> None:
         + "; plain " + ", ".join(f"{name} {probe_dev[name][1] / floor_dev:.2f}"
                                  for name in PROBE_LINE) + f"  [{smi}]", flush=True)
     # bound: the rows a probe must read and write, once each, over the memory
-    # rate; for onehot also its 2 * 8 * 256 * B operations over the TF32 rate
+    # rate; for onehot also its 2 * 8 * 256 * B operations over the TF32 rate.
+    # dmadyn_dst reads its 8 rows only where rows[1] mod 4 == 0
     row_bytes = w_p.shape[1] * 4
     probe_rows = {"dma8": 16, "dmagrp": 16, "vmemrow": 2, "vmem8": 16, "acc": 5, "onehot": 16,
-                  "dynwrite": 9, "dmadyn_dst": 16, "take": 16}
+                  "dynwrite": 9, "dmadyn_dst": 16 if r_p[1] % 4 == 0 else 8, "take": 16}
     probe_bound = {}
     for name, n_rows in probe_rows.items():
         t_bytes = n_rows * row_bytes / HBM_BYTES_PER_S

@@ -16,9 +16,10 @@
 //   onehot        k_onehot, :143                           k_onehot: rows r..r+8 of w[:K] read
 //                                                          (k_onehot_mma: sel @ those rows, TF32)
 //   dynwrite      k_dynwrite, :162                         k_dynwrite: zeros, row (r mod 8) <- w[0]
-//   dmadyn_dst    k_dmadyn_dst, :185                       k_dmadyn_dst: bulk copy to a dynamic
-//                                                          offset of a zeroed scratch
-//   take          k_take, :205                             k_take: rows {3,1,4,1,5,9,2,6}
+//   dmadyn_dst    k_dmadyn_dst, :185                       k_dmadyn_dst: copy_rows from row 8r
+//                                                          where rows[1] mod 4 == 0, else zeros
+//   take          k_take, :205                             k_take: copy_rows' shape, rows
+//                                                          {3,1,4,1,5,9,2,6} as an immediate
 //
 // What bounds them: at the probe's shapes (S = 4096, B = 512) each moves 2
 // to 64 KB in one launch, so the launch and the first access's
@@ -52,21 +53,35 @@
 //   translate to word for word, kept to be timed beside copy_rows: two
 //   dependent asynchronous copies with a barrier wait between them.  In one
 //   chunk of 8 rows it is the one-block copy dma8 and dmagrp had before.
-// - dmadyn_dst: the TPU's HBM->VMEM async copy with a DMA semaphore becomes
-//   a TMA bulk copy (cp.async.bulk global -> shared) whose completion is
-//   counted in bytes on an mbarrier.  One block, one copy of 8 * B * 4
-//   contiguous bytes; addresses and size are 16-byte aligned.  The copy has
-//   no clamp: the wrapper raises on an out-of-range source.  The TPU kernel
-//   leaves the other scratch rows uninitialised (its output is undefined
-//   unless rows[1] mod 4 == 0); here the scratch is zero-filled first, so
-//   those output rows are 0.
+// - dmadyn_dst: the TPU kernel copies rows 8r .. 8r + 8 of w, r = rows[0],
+//   by an async copy on a DMA semaphore into rows 8j .. 8j + 8 of a [32, B]
+//   VMEM scratch, j = rows[1] mod 4, and outputs scratch rows 0 .. 8.
+//   Carried over block by block, as it first was here, that is one block of
+//   256 threads zero-filling the 32-row scratch (64 KB at B = 512), a TMA
+//   bulk copy landing on an mbarrier, and the block copying rows 0 .. 8 out:
+//   three dependent latencies on one SM, behind a host call for the device's
+//   index and an attribute call for the scratch's > 48 KB, which also capped
+//   B at 1812.  Of the 32 scratch rows only rows 0 .. 8 reach the output, so
+//   all that j decides is whether they hold the copy (j == 0) or not; the
+//   TPU kernel leaves them uninitialised then, and the port defines them as
+//   zeros.  So no scratch is needed: the kernel is copy_rows from row 8r
+//   where floor_mod(rows[1], 4) == 0 (computed on the device), else a store
+//   of zeros with no load.  One memory latency deep, any B that is a
+//   multiple of 4, plain launch.  The test is written as a branch, uniform
+//   over the grid, with copy_rows inlined on each side: so nvcc reads the
+//   parameters through the uniform datapath as for dma8.  As one copy_rows
+//   with a select it read them by a chain of per-thread constant loads
+//   ahead of the predicated load, and stood ~0.06 us behind dma8.  The copy
+//   has no clamp: the wrapper raises on a source outside w, whatever j is,
+//   as the reference copies whatever j is.
 // - acc: out[0] = 0 + w[s0] + w[s1] + w[s2] + w[s3] over the [K = 256, B]
 //   block, s_i the clamped slice start of rows[i].  The TPU kernel kept the
 //   whole block resident in VMEM and added four rows of it; carried over
 //   as it was, that made 8 blocks stage 512 KB through shared memory for a
-//   2 KB row, and the 72 KB tiles needed an attribute call (cudaGetDevice)
-//   before each launch.  Bound by bytes: 5 rows of traffic, nanoseconds, so met by a
-//   launch's floor.  The design reads only the four rows: a thread per
+//   2 KB row, and the 72 KB tiles needed an attribute call (and a host call
+//   for the device's index) before each launch.  Bound by bytes: 5 rows of
+//   traffic, nanoseconds, so met by a launch's floor.  The design reads
+//   only the four rows: a thread per
 //   16-byte piece of the row (for B = 512 one block of 128 working
 //   threads), the four starts computed on the device, all four
 //   ld.global.nc.v4 issued before the first add, so the kernel is one memory
@@ -103,8 +118,19 @@
 //   them in the reference: a negative start counts once from the end, then
 //   the start is clamped into [0, K - size] (rows 256 and 1031 of the probe
 //   lie outside the block).
-// - dynwrite, take: one thread per column writes 8 rows; take's static row
-//   list lives in __constant__ memory (a warp-uniform broadcast).
+// - dynwrite: one thread per column writes 8 rows.
+// - take: out[i] = w[t_i] for the static list t = {3, 1, 4, 1, 5, 9, 2, 6}
+//   of the [K = 256, B] block.  The first design here ran one thread per
+//   column over 8 scalar 4-byte loads and stores, the rows in an array in
+//   constant memory, w and out not __restrict__: its SASS issues each load
+//   only after the previous row's store, which waits for that load's data,
+//   so 8 dependent memory latencies, the rows read from the constant bank
+//   between them.  Bound by bytes (16 rows of traffic, nanoseconds), met by
+//   a launch's floor.  The design is copy_rows' shape over the 8 x B
+//   output: a thread per 16-byte piece, its output row i = piece / (B/4),
+//   the source row t_i a nibble of the immediate kTakeRowsPacked (no load
+//   for the index), one ld.global.nc.v4 and one st.global.v4 through
+//   __restrict__ pointers: one memory latency deep.
 //
 // Built with nvcc into a shared library with a plain C interface (see
 // feynmandiagram_tpu_torch/ops/build.py), loaded through ctypes.  Every
@@ -120,9 +146,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kCopyThreads = 256;            // copy_rows: a block moves 4 KB
 constexpr int kBulkThreads = 32;             // k_bulk: one thread works, a warp waits
-constexpr int kMaxDevices = 64;
-
-__constant__ int kTakeRows[8] = {3, 1, 4, 1, 5, 9, 2, 6};
+// take's rows {3, 1, 4, 1, 5, 9, 2, 6}, a nibble each from the lowest:
+// output row i is row (kTakeRowsPacked >> 4i) & 0xF of w
+constexpr uint32_t kTakeRowsPacked = 0x62951413u;
 
 __device__ __forceinline__ int floor_mod(int a, int m) {
   const int r = a % m;
@@ -200,22 +226,16 @@ __device__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
   }
 }
 
-// Copy n4 float4s from shared memory to out, the whole block.
-__device__ __forceinline__ void store_out(float* out, const float* src, int64_t n4) {
-  for (int64_t i = threadIdx.x; i < n4; i += blockDim.x) {
-    reinterpret_cast<float4*>(out)[i] = reinterpret_cast<const float4*>(src)[i];
-  }
-}
-
 // out [size, B] = w[first : first + size], one contiguous range: a grid over
-// its float4s, a load and a store each.
+// its float4s, a load and a store each; with copy false, zeros and no load.
 __device__ __forceinline__ void copy_rows(const float* w, float* out, int64_t first, int size,
-                                          int B) {
+                                          int B, bool copy = true) {
   const int64_t n4 = static_cast<int64_t>(size) * (B / 4);
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n4) return;
   const float4* src = reinterpret_cast<const float4*>(w + first * B);
-  reinterpret_cast<float4*>(out)[i] = __ldg(src + i);   // ld.global.nc.v4.f32
+  reinterpret_cast<float4*>(out)[i] =
+      copy ? __ldg(src + i) : make_float4(0.f, 0.f, 0.f, 0.f);   // ld.global.nc.v4.f32
 }
 
 __global__ void k_dma8(const float* w, float* out, int64_t r, int B) {
@@ -226,15 +246,15 @@ __global__ void k_dmagrp(const float* w, float* out, int64_t r, int B) {
   copy_rows(w, out, group_start(r), 8, B);
 }
 
+// out [8, B] = w[8r : 8r + 8] where rows[1] mod 4 == 0 (the copy lands on
+// the scratch rows that are output), else zeros.  A branch, not a select:
+// see the header.
 __global__ void k_dmadyn_dst(const float* w, float* out, int64_t r, int r1, int B) {
-  __shared__ uint64_t bar;
-  const int j = floor_mod(r1, 4);
-  for (int i = threadIdx.x; i < 8 * B; i += blockDim.x) {   // 32 rows, as float4s
-    reinterpret_cast<float4*>(dyn_smem)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (floor_mod(r1, 4) == 0) {
+    copy_rows(w, out, 8 * r, 8, B);
+  } else {
+    copy_rows(w, out, 8 * r, 8, B, false);
   }
-  bulk_load(dyn_smem + static_cast<int64_t>(j) * 8 * B, w + r * 8 * B,
-            8u * B * sizeof(float), &bar);
-  store_out(out, dyn_smem, 2LL * B);
 }
 
 // out [size, B] = w[:K][s : s + size], s = slice_start(r, K, size).
@@ -354,44 +374,21 @@ __global__ void k_dynwrite(const float* w, float* out, int r, int B) {
   out[static_cast<int64_t>(floor_mod(r, 8)) * B + b] = w[b];
 }
 
-__global__ void k_take(const float* w, float* out, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    out[static_cast<int64_t>(i) * B + b] = w[static_cast<int64_t>(kTakeRows[i]) * B + b];
-  }
+// out [8, B]: row i = w[(kTakeRowsPacked >> 4i) & 0xF]; a grid over the
+// output's 16-byte pieces, a load and a store each.  8 * B/4 < 2^32, so the
+// piece index and its row are 32-bit (no 64-bit division).
+__global__ void k_take(const float* __restrict__ w, float* __restrict__ out, int B) {
+  const uint32_t q = B / 4;
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 8 * q) return;
+  const uint32_t row = i / q;
+  const uint32_t src = (kTakeRowsPacked >> (4 * row)) & 0xFu;
+  reinterpret_cast<float4*>(out)[i] =
+      __ldg(reinterpret_cast<const float4*>(w) + static_cast<int64_t>(src) * q + (i - row * q));
 }
 
 // The least a launch can do: what every probe's time is held against.
 __global__ void k_empty() {}
-
-// Let `kernel` take all the dynamic shared memory a block can have beside
-// its static share, past the 48 KB default.
-cudaError_t raise_smem(const void* kernel, int device) {
-  int optin = 0;
-  cudaFuncAttributes attr;
-  cudaError_t e =
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              optin - static_cast<int>(attr.sharedSizeBytes));
-}
-
-// k_dmadyn_dst, the one kernel that stages more than 48 KB, gets the
-// attribute once per process and device, not at every launch.
-int big_smem_ready() {
-  static bool ready[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (device < kMaxDevices && ready[device]) return 0;
-  e = raise_smem(reinterpret_cast<const void*>(k_dmadyn_dst), device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (device < kMaxDevices) ready[device] = true;
-  return 0;
-}
 
 unsigned blocks_of(int64_t n, int64_t per_block) {
   return static_cast<unsigned>((n + per_block - 1) / per_block);
@@ -402,14 +399,6 @@ int launch(void (*kernel)(Params...), unsigned grid, unsigned threads, size_t sm
            void* stream, Args... args) {
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
-}
-
-// A launch of the kernel of big_smem_ready.
-template <typename... Params, typename... Args>
-int launch_big(void (*kernel)(Params...), unsigned grid, size_t smem, void* stream,
-               Args... args) {
-  const int e = big_smem_ready();
-  return e != 0 ? e : launch(kernel, grid, kThreads, smem, stream, args...);
 }
 
 // copy_rows' grid for `size` rows of B floats (B a multiple of 4).
@@ -455,11 +444,12 @@ int fd_probe_empty(int grid, int threads, void* stream) {
   return launch(k_empty, grid, threads, 0, stream);
 }
 
-// rows 8r .. 8r+8 -> scratch rows 8j .. 8j+8 (j = r1 mod 4) of a zeroed
-// [32, B] scratch; out = scratch[0:8].  The caller checks 0 <= 8r <= S - 8.
+// rows 8r .. 8r+8 -> out [8, B] where r1 mod 4 == 0, else zeros.  The caller
+// checks 0 <= 8r <= S - 8.
 int fd_probe_dmadyn_dst(const float* w, float* out, long long r, int r1, int B,
                         void* stream) {
-  return launch_big(k_dmadyn_dst, 1, 32 * B * sizeof(float), stream, w, out, r, r1, B);
+  return launch(k_dmadyn_dst, copy_grid(8, B, kCopyThreads), kCopyThreads, 0, stream, w, out, r,
+                r1, B);
 }
 
 int fd_probe_vmemrow(const float* w, float* out, int r, int K, int B, void* stream) {
@@ -504,7 +494,7 @@ int fd_probe_dynwrite(const float* w, float* out, int r, int B, void* stream) {
 
 // w needs at least 10 rows.
 int fd_probe_take(const float* w, float* out, int B, void* stream) {
-  return launch(k_take, blocks_of(B, kThreads), kThreads, 0, stream, w, out, B);
+  return launch(k_take, copy_grid(8, B, kCopyThreads), kCopyThreads, 0, stream, w, out, B);
 }
 
 }  // extern "C"

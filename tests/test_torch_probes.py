@@ -13,6 +13,7 @@ reference.
 """
 import functools
 import os
+import re
 import runpy
 import unittest.mock
 
@@ -349,13 +350,44 @@ def test_dmagrp_needs_whole_groups():
             case(w, torch.zeros(4, dtype=torch.int32))
 
 
-def test_dmadyn_dst_scratch_must_fit_shared_memory():
-    """The one copy that still stages its rows: 32 rows of B floats beside
-    the kernel's barrier, in a block's 227 KB."""
-    rows = torch.zeros(4, dtype=torch.int32)
-    assert pm.case_dmadyn_dst(torch.zeros((8, 1812), dtype=torch.float32), rows).shape == (8, 1812)
-    with pytest.raises(ValueError, match="shared memory"):
-        pm.case_dmadyn_dst(torch.zeros((8, 1816), dtype=torch.float32), rows)
+@pytest.mark.parametrize("r1", [0, 1, -4])
+@pytest.mark.parametrize("b", [4, 1816, 4096])
+def test_dmadyn_dst_of_any_width_equals_interpret_reference(jax_script, b, r1):
+    """Any width that is a multiple of 4, past the 1812 floats a staged
+    32-row scratch allowed.  Where rows[1] mod 4 == 0 the copy is the
+    output, as in the JAX script; elsewhere the rows the TPU kernel left
+    uninitialised are zeros.  Exact: a copy."""
+    rows = (64 // 8 - 1, r1, 0, 0)   # the last group of 8 of w's 64 rows
+    w = np.random.default_rng(b + r1 % 4).standard_normal((64, b)).astype(np.float32)
+    got = pm.case_dmadyn_dst(torch.from_numpy(w), torch.tensor(rows, dtype=torch.int32)).numpy()
+    ref = _jax_case(jax_script, "dmadyn_dst", w, rows) if r1 % 4 == 0 else np.zeros((8, b),
+                                                                                   np.float32)
+    assert got.shape == ref.shape == (8, b)
+    np.testing.assert_array_equal(got, ref)
+    if r1 % 4 == 0:
+        np.testing.assert_array_equal(got, w[56:64])
+
+
+@pytest.mark.parametrize("b", [4, 100])
+@pytest.mark.parametrize("s", [10, 100, 256, 300])
+def test_take_of_any_block_equals_jnp_take(s, b):
+    """Blocks from the 10 rows take needs to past 256 rows, where only
+    w[:256] is the block.  Exact: a copy."""
+    w = np.random.default_rng(s * b).standard_normal((s, b)).astype(np.float32)
+    got = pm.case_take(torch.from_numpy(w), torch.zeros(4, dtype=torch.int32)).numpy()
+    ref = np.asarray(jnp.take(jnp.asarray(w[:256]), jnp.asarray(pm.TAKE_ROWS, jnp.int32), axis=0))
+    assert got.shape == ref.shape == (8, b)
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_take_kernel_rows_are_take_rows():
+    """k_take's rows are the nibbles of kTakeRowsPacked, from the lowest; no
+    CPU runs the kernel, so its constant is read from the source."""
+    with open(os.path.join(REPO, "feynmandiagram_tpu_torch", "csrc", "row_probes.cu")) as f:
+        packed = re.search(r"kTakeRowsPacked = (0x[0-9a-fA-F]+)u;", f.read())
+    assert packed is not None
+    value = int(packed.group(1), 16)
+    assert tuple((value >> (4 * i)) & 0xF for i in range(8)) == pm.TAKE_ROWS
 
 
 def test_cpu_path_does_not_count_launches():
