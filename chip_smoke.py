@@ -20,6 +20,13 @@ output line or more each:
    float32 for sum_mode 'fused' and 'bucketed', against the port's plain
    path in float64 on the card, with the kernel's launch count per pass,
    which must be the number of levels that hold buckets;
+4b. the Hubbard atom (``models.hubbard_atom``) at beta 2.3, U 1, mu 0, the
+   lowest Matsubara frequency, orders 1-5, float32: the kernel's launches
+   in one pass of each order against the number of levels that hold
+   buckets (0 / 0 / 1 / 8 / 12), the pass through the kernel against the
+   plain path in float64 on the same seeded varT, ``sigma_mc`` against
+   the closed-form series (order 1 exactly -U/2, orders 2-5 within 5
+   stderr), and each order's device and wall time of one pass;
 5. per-pass device and wall times of the level launches, of the same kernel
    called bucket by bucket, and of the plain version (device time: CUDA
    events around launches queued behind a sleep kernel), per level beside
@@ -45,7 +52,9 @@ output line or more each:
    onehot (the select as a read, exact; on tensor cores in TF32, within
    2^-11 relative) at every residue mod 8 about 0, 8 and K - 8, on blocks of
    8 to 300 rows and widths from one 16-byte piece to 16384 columns, acc bit
-   for bit; the two slice kernels
+   for bit; dynwrite bit for bit at every residue of r mod 8,
+   negative r and r past the block among them, on blocks of 1 to 300 rows
+   holding -0.0, infinities and NaNs, at the same widths; the two slice kernels
    (vmemrow, vmem8) and their TMA variants also at every edge of the
    start's clamp, on blocks shorter than 256 rows and at widths from one
    16-byte piece to 16384 columns; the two copies (dma8, dmagrp) and their
@@ -59,8 +68,9 @@ output line or more each:
    computes its function (``probe_library_calls``), each on two clocks:
    device time (the profiler's busy time) and per-call time (CUDA events
    around one call on an idle stream, the host's launch work included); the
-   four copy kernels beside their TMA variants, acc, and onehot's two designs
-   in turns, alone and 20 back to back on the device clock; the two copies at
+   four copy kernels beside their TMA variants, acc, onehot's two designs
+   and dynwrite (beside dma8) in turns, alone and 20 back to back on the
+   device clock; the two copies at
    64, 128 and 256 threads a block; a launch's floor, the time of an empty
    kernel on three clocks, and every probe's device time over it;
 9. ``benchmarks.probe_gather.run()``: the streaming roofline and the
@@ -118,6 +128,17 @@ EMPTY_GRIDS = ((1, 32), (16, 128))       # (blocks, threads) of the empty kernel
                                          # launch, and a thread per 16-byte piece of 8 rows
                                          # at B 512
 BIG_COPY = (40000, 32768)                # S x B f32, 5.2 GB: byte offsets past 2^32
+# the Hubbard atom's phase: beta, U, the orders the series knows, each
+# order's levels that hold buckets (the kernel's launches a pass), the batch
+# of a pass, the Monte-Carlo chunks, and each order's stderr floor (as in
+# tests/test_hubbard_atom.py; order 5 as order 4)
+HUBBARD_BETA, HUBBARD_U = 2.3, 1.0
+HUBBARD_ORDERS = (1, 2, 3, 4, 5)
+HUBBARD_BUCKET_LEVELS = {1: 0, 2: 0, 3: 1, 4: 8, 5: 12}
+HUBBARD_BATCH, HUBBARD_CHUNKS = 65536, 16
+HUBBARD_FLOOR = {2: 1e-4, 3: 3e-4, 4: 5e-4, 5: 5e-4}
+ORDER1_REL = 1e-6       # order 1 against -U/2, float32: relative, and absolute for Im
+DYNWRITE_ROWS = (-16, -7, 2, 259, 1028, -3, 14, 2 ** 31 - 1, -2 ** 31)   # r mod 8 = 0..7, 0
 PROBE_LINE = {"dma8": 39, "dmagrp": 61, "vmemrow": 82, "vmem8": 100, "acc": 122,
               "onehot": 143, "dynwrite": 162, "dmadyn_dst": 185, "take": 205}
 
@@ -406,7 +427,7 @@ def main() -> None:
 
     phase("slices")
 
-    # -- 5. throughput and per-pass times
+    # clocks of the card, for phases 4b on
     from torch.profiler import ProfilerActivity, profile
 
     def wall_ms(fn, n=10):
@@ -458,6 +479,110 @@ def main() -> None:
                 fail("the host did not enqueue a timed call within a sleep of 2^32 cycles")
         return np.median(np.asarray(runs), axis=0)
 
+    def device_ms_by_kernel(fn, n=10):
+        """The profiler's device time per call of fn, by kernel name, for
+        calls that wait for the device or copy from the host (the
+        Monte-Carlo pass, the probes' plain versions): each kernel's own
+        time summed over n calls, after one untraced call.  The host idles
+        10 ms at each end of the trace (without that the profiler on the
+        card dropped the first kernels of short traces); a trace without
+        device time is taken again, up to TRACE_TRIES times."""
+        for _ in range(TRACE_TRIES):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(0.01)
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(0.01)
+            by_kernel = {e.key: getattr(e, "self_device_time_total", 0) / n / 1e3
+                         for e in prof.key_averages() if str(e.device_type).endswith("CUDA")}
+            if sum(by_kernel.values()) > 0:
+                return by_kernel
+        fail(f"the profiler saw no device time in {TRACE_TRIES} traces")
+
+    def busy_ms(fn, n=10):
+        """The profiler's device busy time per call of fn:
+        device_ms_by_kernel summed."""
+        return sum(device_ms_by_kernel(fn, n).values())
+
+    # -- 4b. the Hubbard atom: the port's graph phase against the closed form
+    from feynmandiagram_tpu_torch.models import hubbard_atom as ha
+    series = ha.sigma_power_series(HUBBARD_BETA)
+    hubbard = {}
+    for order in HUBBARD_ORDERS:
+        t0 = time.perf_counter()
+        hs = ha.build_sigma_evaluator(order, HUBBARD_BETA, device=dev, dtype=torch.float32)
+        plain_hs = ha.build_sigma_evaluator(order, HUBBARD_BETA, device=dev,
+                                            dtype=torch.float64, kernel=False)
+        built = time.perf_counter() - t0
+        hub_varT = torch.as_tensor(gen.random((hs.num_tau, HUBBARD_BATCH)) * HUBBARD_BETA,
+                                   device=dev)
+        hub_varT[0] = 0.0
+        hub_ref = plain_hs.fn(hub_varT, HUBBARD_U)
+        torch.cuda.synchronize()
+        level_fn.launches = kernel_fn.launches = 0
+        hub_got = hs.fn(hub_varT, HUBBARD_U)
+        torch.cuda.synchronize()
+        n_launch = level_fn.launches
+        if n_launch != HUBBARD_BUCKET_LEVELS[order] or kernel_fn.launches != 0:
+            fail(f"Hubbard order {order}: {n_launch} level and {kernel_fn.launches} bucket "
+                 f"launches in a pass, expected {HUBBARD_BUCKET_LEVELS[order]} (one per level "
+                 f"that holds buckets) and 0")
+        if (hub_got.shape != (2, HUBBARD_BATCH) or hub_got.dtype != torch.float32
+                or not torch.isfinite(hub_got).all()):
+            fail(f"Hubbard order {order}: output {hub_got.dtype} {tuple(hub_got.shape)} or not "
+                 f"finite")
+        # per channel max|d| / max|ref|; a channel that is 0 throughout must stay 0
+        scale = hub_ref.abs().max(dim=1).values.clamp_min(torch.finfo(torch.float64).tiny)
+        rel = ((hub_got.double() - hub_ref).abs().max(dim=1).values / scale).tolist()
+        if not max(rel) <= SLICE_TOL:
+            fail(f"Hubbard order {order}: f32 kernel vs f64 plain, max|d|/max|ref| Re "
+                 f"{rel[0]:.3e} Im {rel[1]:.3e} > {SLICE_TOL}")
+        mean, err = ha.sigma_mc(order, HUBBARD_U, HUBBARD_BETA, batch=HUBBARD_BATCH,
+                                chunks=HUBBARD_CHUNKS, seed=order, device=dev,
+                                dtype=torch.float32)
+        expect = complex(series[order - 1] * HUBBARD_U ** order)
+        if order == 1:
+            half = HUBBARD_U / 2
+            ok = abs(mean.real + half) <= ORDER1_REL * half and abs(mean.imag) <= ORDER1_REL
+            z = "n/a (no free tau)"
+        else:
+            bars = (5 * max(abs(err.real), HUBBARD_FLOOR[order]),
+                    5 * max(abs(err.imag), HUBBARD_FLOOR[order]))
+            ok = abs(mean.real - expect.real) < bars[0] and abs(mean.imag - expect.imag) < bars[1]
+            z = (f"Re {(mean.real - expect.real) / err.real:+.2f}, "
+                 f"Im {(mean.imag - expect.imag) / err.imag:+.2f}")
+        print(f"hubbard: order {order}, beta {HUBBARD_BETA}, U {HUBBARD_U}, f32: {n_launch} level "
+              f"launches a pass (expected {HUBBARD_BUCKET_LEVELS[order]}); kernel vs f64 plain, "
+              f"batch {HUBBARD_BATCH}, max|d|/max|ref| Re {rel[0]:.3e} Im {rel[1]:.3e} (limit "
+              f"{SLICE_TOL:g}); sigma_mc {HUBBARD_BATCH} x {HUBBARD_CHUNKS}, seed {order}: mean "
+              f"{mean:.6f}, stderr {err:.6f}, series {expect:.6f}, (mean - series)/stderr {z}; "
+              f"built in {built:.2f} s", flush=True)
+        if not ok:
+            fail(f"Hubbard order {order}: sigma_mc {mean} (stderr {err}) against the series "
+                 f"{expect}")
+
+        def one_pass():
+            hs.fn(hub_varT, HUBBARD_U)
+
+        by_kernel = device_ms_by_kernel(one_pass)
+        busy = sum(by_kernel.values())
+        level_busy = sum(t for k, t in by_kernel.items() if "gather_reduce_kernel" in k)
+        wall = wall_ms(one_pass)
+        hubbard[order] = {"launches_per_pass": n_launch, "max_rel_err": max(rel),
+                          "busy_ms": busy, "wall_ms": wall}
+        print(f"hubbard time: order {order}, batch {HUBBARD_BATCH} f32, one pass: device busy "
+              f"{busy:.4f} ms, wall {wall:.4f} ms, {HUBBARD_BATCH / wall * 1e3:.0f} samples/s, "
+              f"level launches {level_busy:.4f} ms ({level_busy / busy:.3f} of busy)  [{smi}]",
+              flush=True)
+        del hs, plain_hs, hub_varT, hub_ref, hub_got
+        torch.cuda.empty_cache()
+
+    phase("Hubbard atom")
+
+    # -- 5. throughput and per-pass times
     def level_bounds(low, batch, elsize):
         """Per level that holds buckets, the least time the card could take
         and what sets it: bytes (every distinct row the level's buckets read
@@ -508,29 +633,6 @@ def main() -> None:
         return sum(queued_ms(lambda: [op(w, i, f, s, **kw) for i, f, s in
                                       bl[k:k + QUEUED_BUCKETS]])
                    for k in range(0, len(bl), QUEUED_BUCKETS))
-
-    def busy_ms(fn, n=10):
-        """The profiler's device busy time per call of fn, for calls that
-        wait for the device or copy from the host (the Monte-Carlo pass, the
-        probes' plain versions): its kernels' own time summed over n calls,
-        after one untraced call.  The host idles 10 ms at each end of the
-        trace (without that the profiler on the card dropped the first
-        kernels of short traces); a trace without device time is taken
-        again, up to TRACE_TRIES times."""
-        for _ in range(TRACE_TRIES):
-            fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                time.sleep(0.01)
-                for _ in range(n):
-                    fn()
-                torch.cuda.synchronize()
-                time.sleep(0.01)
-            total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-                        if str(e.device_type).endswith("CUDA"))
-            if total > 0:
-                return total / n / 1e3
-        fail(f"the profiler saw no device time in {TRACE_TRIES} traces")
 
     def launch_sizes(low, w, bl):
         """Device time of the fused pass's bucket launches by the launch's
@@ -876,6 +978,24 @@ def main() -> None:
     print(f"probe: dmadyn_dst = plain, exact, on {n_dyn} cases (rows[1] -5..4 x the first, a "
           f"middle and the last group x S 8, 1000, 4096 x B 4 to 16384, and B 1816, 32768); take "
           f"= plain, exact, on {n_take} (S 10, 100, 256, 300 x B 4 to 16384)", flush=True)
+    # dynwrite: every residue of r mod 8 (negative r and r past the block
+    # among them), blocks of 1 to 300 rows whose row 0 holds -0.0, infinities
+    # and a NaN, widths from one 16-byte piece up; bit for bit
+    n_dynwrite = 0
+    for S in (1, 8, 300):
+        for B in (4, 100, 512, 4096, 16384):
+            wr = torch.randn((S, B), generator=dev_gen, device=dev)
+            wr[0, :4] = torch.tensor([-0.0, float("inf"), float("-inf"), float("nan")])
+            for r in DYNWRITE_ROWS:
+                got = pm.case_dynwrite(wr, rows_t((r,)))
+                ref = pm.case_dynwrite_plain(wr, rows_t((r,)))
+                if got.shape != ref.shape or not torch.equal(got.view(torch.int32),
+                                                             ref.view(torch.int32)):
+                    fail(f"probe dynwrite on {S}x{B}, r {r}: not the plain version's bits")
+                n_dynwrite += 1
+    print(f"probe: dynwrite = plain bit for bit on {n_dynwrite} cases: r {DYNWRITE_ROWS} "
+          f"(every residue mod 8) x S 1, 8, 300 x B 4 to 16384, row 0 holding -0.0, +-inf and "
+          f"NaN", flush=True)
     # acc: every edge of the clamp in each of its rows and in all four; both
     # designs of onehot: every residue mod 8 about 0, 8 and K - 8, and starts
     # that select nothing; blocks of fewer than 256 rows, widths from one
@@ -1086,6 +1206,19 @@ def main() -> None:
     variants.append(f"dmadyn_dst back to back kernel / plain / library call "
                     f"{' / '.join(map(us, dyn_q))}; take back to back kernel / library call "
                     f"{' / '.join(map(us, take_q))}")
+    # dynwrite beside dma8 (in turns there and back, twice), and 20 back to
+    # back
+    pair = (pm.case_dynwrite, pm.case_dma8)
+    seen = {fn: [] for fn in pair}
+    for fn in [*pair, *reversed(pair)] * 2:
+        seen[fn].append(busy_ms(lambda fn=fn: fn(w_p, rows_p), n=20))
+    dw_q = [queued_ms(fn, n=20) for fn in (lambda: pm.case_dynwrite(w_p, rows_p),
+                                           lambda: pm.case_dynwrite_plain(w_p, rows_p),
+                                           library_calls["dynwrite"])]
+    variants.append("dynwrite beside dma8 " + ", ".join(
+        f"{fn.__name__} {us(float(np.median(v)))} ({', '.join(map(us, v))})"
+        for fn, v in seen.items())
+        + f"; back to back kernel / plain / library call {' / '.join(map(us, dw_q))}")
     print("probe variants, device us per call: " + "; ".join(variants) + f"  [{smi}]",
           flush=True)
     # the two copies at other block sizes, through the library's own entry
@@ -1186,7 +1319,8 @@ def main() -> None:
         "bucketed": {"launches_per_pass": launches["bucketed"], "ms": bucketed["level_ms"],
                      "plain_ms": bucketed["plain_ms"], "bound_ms": bucketed["bound_ms"],
                      "bound_by": bucketed["bound_by"], "library_ms": bucketed["library_ms"],
-                     "bucket_by_bucket_ms": bucketed["bucket_ms"]}}] + [{
+                     "bucket_by_bucket_ms": bucketed["bucket_ms"]},
+        "hubbard": {str(order): h for order, h in hubbard.items()}}] + [{
             "name": f"probe_{name}", "route": "cuda",
             "source": "feynmandiagram_tpu_torch/csrc/row_probes.cu",
             "replaces": f"benchmarks/probe_mosaic_caps.py:{PROBE_LINE[name]}",

@@ -347,7 +347,8 @@ CASES: Sequence[Tuple[str, Callable, Callable]] = (
      case_acc_plain),
     ("one-hot select of 8 rows of w[:256] as a read, only those rows read", case_onehot,
      case_onehot_plain),
-    ("dyn-position 1-row write", case_dynwrite, case_dynwrite_plain),
+    ("dyn-position 1-row write, a 16-byte piece a thread, a block row an output row",
+     case_dynwrite, case_dynwrite_plain),
     ("dyn src + dyn dst offsets, the copy or zeros, a 16-byte piece a thread", case_dmadyn_dst,
      case_dmadyn_dst_plain),
     ("static take of 8 rows of w[:256], a 16-byte piece a thread", case_take, case_take_plain),

@@ -15,7 +15,8 @@
 //   acc           k_acc, :122                              k_acc: 0 + w[s0] + .. + w[s3], 4 loads
 //   onehot        k_onehot, :143                           k_onehot: rows r..r+8 of w[:K] read
 //                                                          (k_onehot_mma: sel @ those rows, TF32)
-//   dynwrite      k_dynwrite, :162                         k_dynwrite: zeros, row (r mod 8) <- w[0]
+//   dynwrite      k_dynwrite, :162                         k_dynwrite: copy_rows' shape over 8 x B,
+//                                                          a block row each, w[0] in row r mod 8
 //   dmadyn_dst    k_dmadyn_dst, :185                       k_dmadyn_dst: copy_rows from row 8r
 //                                                          where rows[1] mod 4 == 0, else zeros
 //   take          k_take, :205                             k_take: copy_rows' shape, rows
@@ -118,7 +119,20 @@
 //   them in the reference: a negative start counts once from the end, then
 //   the start is clamped into [0, K - size] (rows 256 and 1031 of the probe
 //   lie outside the block).
-// - dynwrite: one thread per column writes 8 rows.
+// - dynwrite: out [8, B] is zeros but for row floor_mod(r, 8), which holds
+//   w[0].  The first design here ran one thread per column over eight scalar
+//   4-byte zero stores, then a 4-byte load of w[b] and a store into row
+//   r mod 8, which was so written twice; w and out not __restrict__, so the
+//   load could not move above the eight stores.  Bound by bytes (9 rows of
+//   traffic, nanoseconds), met by a launch's floor.  The design is
+//   copy_rows' shape over the 8 x B output: a thread per 16-byte piece, one
+//   st.global.v4 each, and one ld.global.nc.v4 of the matching piece of w[0]
+//   only in row floor_mod(r, 8), zeros with no load elsewhere, through
+//   __restrict__ pointers (the wrapper allocates out, so it never aliases w).
+//   The grid is 2-D, blockIdx.y the output row, so the row test is a branch
+//   uniform over the block and needs no division (a 1-D grid that takes the
+//   row by a 32-bit division by B/4, as k_take does, was timed beside it and
+//   was slower).
 // - take: out[i] = w[t_i] for the static list t = {3, 1, 4, 1, 5, 9, 2, 6}
 //   of the [K = 256, B] block.  The first design here ran one thread per
 //   column over 8 scalar 4-byte loads and stores, the rows in an array in
@@ -367,11 +381,20 @@ __global__ void k_onehot_mma(const float* w, float* out, int r, int K, int B) {
   }
 }
 
-__global__ void k_dynwrite(const float* w, float* out, int r, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  for (int i = 0; i < 8; ++i) out[static_cast<int64_t>(i) * B + b] = 0.f;
-  out[static_cast<int64_t>(floor_mod(r, 8)) * B + b] = w[b];
+// out [8, B]: row floor_mod(r, 8) = w[0], the others zeros; block row
+// blockIdx.y writes output row blockIdx.y, a 16-byte piece a thread.  The
+// test is a branch uniform over the block, with the store on each side.
+// 8 * B/4 < 2^32, so the piece index is 32-bit.
+__global__ void k_dynwrite(const float* __restrict__ w, float* __restrict__ out, int r, int B) {
+  const uint32_t q = B / 4;
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= q) return;
+  float4* dst = reinterpret_cast<float4*>(out) + blockIdx.y * q + i;
+  if (blockIdx.y == static_cast<uint32_t>(floor_mod(r, 8))) {
+    *dst = __ldg(reinterpret_cast<const float4*>(w) + i);
+  } else {
+    *dst = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
 }
 
 // out [8, B]: row i = w[(kTakeRowsPacked >> 4i) & 0xF]; a grid over the
@@ -395,7 +418,7 @@ unsigned blocks_of(int64_t n, int64_t per_block) {
 }
 
 template <typename... Params, typename... Args>
-int launch(void (*kernel)(Params...), unsigned grid, unsigned threads, size_t smem,
+int launch(void (*kernel)(Params...), dim3 grid, unsigned threads, size_t smem,
            void* stream, Args... args) {
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
@@ -488,8 +511,10 @@ int fd_probe_onehot_mma(const float* w, float* out, int r, int K, int B, void* s
   return launch(k_onehot_mma, blocks_of(B, kThreads / 4), kThreads, 0, stream, w, out, r, K, B);
 }
 
+// w needs at least 1 row.
 int fd_probe_dynwrite(const float* w, float* out, int r, int B, void* stream) {
-  return launch(k_dynwrite, blocks_of(B, kThreads), kThreads, 0, stream, w, out, r, B);
+  return launch(k_dynwrite, dim3(copy_grid(1, B, kCopyThreads), 8), kCopyThreads, 0, stream, w,
+                out, r, B);
 }
 
 // w needs at least 10 rows.

@@ -215,6 +215,45 @@ def test_onehot_at_every_residue_equals_interpret_reference(jax_script, k, ancho
             np.testing.assert_array_equal(got, ref, err_msg=f"{case.__name__} r={r}")
 
 
+@pytest.mark.parametrize("b", [4, 100, 512, 16384])
+@pytest.mark.parametrize("r", chip_smoke.DYNWRITE_ROWS)
+def test_dynwrite_at_every_residue_equals_interpret_reference(jax_script, r, b):
+    """Row floor_mod(r, 8) of the output is w[0], the others zeros, at
+    chip_smoke's rows (every residue mod 8, negative r and r past the block
+    among them, int32's extremes) and widths from one 16-byte piece to 16384
+    columns; w has rows past the block's 256.  Bit for bit: a copy and
+    zeros; w[0] holds -0.0, infinities and a NaN."""
+    w = np.random.default_rng(b + r % 8).standard_normal((300, b)).astype(np.float32)
+    w[0, :4] = [-0.0, np.inf, -np.inf, np.nan]
+    rows = (r, 0, 0, 0)
+    ref = _jax_case(jax_script, "dynwrite", w, rows)
+    want = np.zeros((8, b), np.float32)
+    want[r % 8] = w[0]
+    np.testing.assert_array_equal(ref.view(np.int32), want.view(np.int32))
+    got = pm.case_dynwrite(torch.from_numpy(w), torch.tensor(rows, dtype=torch.int32)).numpy()
+    assert got.shape == ref.shape == (8, b)
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+
+
+@pytest.mark.parametrize("r", [-3, 5, 17])
+@pytest.mark.parametrize("s", [1, 8])
+def test_dynwrite_of_short_blocks_equals_interpret_reference(jax_script, s, r):
+    """Blocks of 1 and 8 rows, as chip_smoke runs them: only row 0 is read.
+    Bit for bit."""
+    w = np.random.default_rng(s * 8 + r % 8).standard_normal((s, 100)).astype(np.float32)
+    rows = (r, 0, 0, 0)
+    ref = _jax_case(jax_script, "dynwrite", w, rows)
+    got = pm.case_dynwrite(torch.from_numpy(w), torch.tensor(rows, dtype=torch.int32)).numpy()
+    assert got.shape == ref.shape == (8, 100)
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+
+
+def test_dynwrite_of_an_empty_block_raises():
+    with pytest.raises(ValueError):
+        pm.case_dynwrite(torch.zeros((0, 16), dtype=torch.float32),
+                         torch.zeros(4, dtype=torch.int32))
+
+
 @pytest.mark.parametrize("r", [-8, "k", 2 ** 31 - 1, -2 ** 31])
 @pytest.mark.parametrize("k", [8, 100, 256])
 def test_onehot_start_that_selects_nothing_equals_interpret_reference(jax_script, k, r):
