@@ -27,6 +27,22 @@ output line or more each:
    plain path in float64 on the same seeded varT, ``sigma_mc`` against
    the closed-form series (order 1 exactly -U/2, orders 2-5 within 5
    stderr), and each order's device and wall time of one pass;
+4c. config 4, the order-4 self-energy's counterterm series
+   (``benchmarks.bench_config4.config4_roots``: Σ -> ``taylorAD([2, 2])``
+   -> 36 roots whose leaves carry G and V derivative orders 0-2, generated
+   once and lowered fused and bucketed), float32 on cuda: the level
+   launches of a pass against the levels that hold buckets, no launch
+   bucket by bucket, the pass against the port's float64 plain path (worst
+   root and its order tuple), fused at batch 4096, 4097 and 8192, bucketed
+   at 256; for the fused lowering, Monte-Carlo samples/s at batch 8192 and
+   16384 with the device's busy time, idle share and the level launches'
+   share, the leaf and graph phases' wall and device time alone, and the
+   level launches' device time per level beside each level's bound at
+   8192;
+4d. the exact-diagonalization oracle (``models.atom_ed``) on cuda in
+   float64: the U=0 atom's g(τ) against the free kernel and against the
+   same on the CPU, the ED self-energy against ``exact_sigma``, the dimer's
+   first-order hopping identity and Wick's theorem at U=0;
 5. per-pass device and wall times of the level launches, of the same kernel
    called bucket by bucket, and of the plain version (device time: CUDA
    events around launches queued behind a sleep kernel), per level beside
@@ -35,7 +51,8 @@ output line or more each:
    launch geometry, ``torch.sparse.mm`` over the bucketed pass's buckets as
    the library yardstick, the fused pass's device time in bins of the
    launch's bytes, Monte-Carlo samples/s of both slices with their launch
-   counts and the device's idle share (the profiler's busy time);
+   counts and the device's idle share (1 - the profiler's busy time / the
+   wall; a busy time above the wall fails as a faulty reading);
 6. the bucket kernel's storage x accumulation pairs: kernel against plain
    for float32/float64 and bfloat16/float32 on random buckets and on every
    order-4 fused bucket, and against the float64 sum rounded once to
@@ -84,6 +101,7 @@ the JAX package ``feynmandiagram_tpu`` are blocked from import: the port
 stands on its own.
 """
 import json
+import math
 import os
 import sys
 import time
@@ -138,6 +156,12 @@ HUBBARD_BUCKET_LEVELS = {1: 0, 2: 0, 3: 1, 4: 8, 5: 12}
 HUBBARD_BATCH, HUBBARD_CHUNKS = 65536, 16
 HUBBARD_FLOOR = {2: 1e-4, 3: 3e-4, 4: 5e-4, 5: 5e-4}
 ORDER1_REL = 1e-6       # order 1 against -U/2, float32: relative, and absolute for Im
+# the ED oracle's phase (as tests/test_atom_ed.py): taus of the U=0 atom's
+# g_tau, its bound against the free kernel and against the CPU, the (U, mu,
+# beta) of the self-energy checks and of the dimer's hopping identity
+ED_TAUS, ED_RTOL = 65536, 1e-12
+ED_SIGMA_CASES = ((1.0, 0.0, 1.0), (2.5, 0.6, 0.8), (4.0, -0.3, 1.5))
+ED_HOP = (2.0, 0.3, 1.2)
 DYNWRITE_ROWS = (-16, -7, 2, 259, 1028, -3, 14, 2 ** 31 - 1, -2 ** 31)   # r mod 8 = 0..7, 0
 PROBE_LINE = {"dma8": 39, "dmagrp": 61, "vmemrow": 82, "vmem8": 100, "acc": 122,
               "onehot": 143, "dynwrite": 162, "dmadyn_dst": 185, "take": 205}
@@ -390,40 +414,55 @@ def main() -> None:
 
     phase("level checks")
 
+    def check_slice(c, samples, label, names=None):
+        """The float32 pass of c through the kernel against the port's plain
+        path in float64 on the card, on each (varK, varT) of samples: a
+        pass must launch the kernel once per level that holds buckets and
+        never bucket by bucket, and each root's max|d|/max|ref| must be
+        within SLICE_TOL (names: each root's name in the failure).  Returns
+        the levels that hold buckets and, per batch, (each root's error,
+        max|d|/max|ref| over all roots)."""
+        n_levels = sum(1 for lvl in c.lowered.levels if level_buckets(lvl))
+        n_roots = len(c.lowered.root_slots)
+        ref_leaf = make_leaf_evaluator(c.tables, beta=BETA, kF=KF, lam=LAM, device=dev,
+                                       dtype=torch.float64)
+        ref_graph = make_evaluator(c.lowered, device=dev, dtype=torch.float64, kernel=False)
+        out = {}
+        for vk, vt in samples:
+            batch = vt.shape[-1]
+            ref = ref_graph(ref_leaf(vk, vt))
+            torch.cuda.synchronize()
+            kernel_fn.launches = level_fn.launches = 0
+            got = c(vk, vt)
+            torch.cuda.synchronize()
+            if level_fn.launches != n_levels or kernel_fn.launches != 0:
+                fail(f"{label}, batch {batch}: {level_fn.launches} level and "
+                     f"{kernel_fn.launches} bucket launches in a pass, expected {n_levels} (one "
+                     f"per level that holds buckets) and 0")
+            if got.shape != (n_roots, batch) or not torch.isfinite(got).all():
+                fail(f"{label}, batch {batch}: output not finite or of shape {tuple(got.shape)}")
+            d = (got.double() - ref).abs()
+            rel = (d.max(dim=1).values / ref.abs().max(dim=1).values).tolist()
+            out[batch] = (rel, (d.max() / ref.abs().max()).item())
+            k = int(np.argmax(rel))
+            if not rel[k] <= SLICE_TOL:
+                fail(f"{label}, batch {batch}: per-root scale-relative error {rel[k]:.3e} > "
+                     f"{SLICE_TOL} at root {k} {'' if names is None else names[k]}")
+        return n_levels, out
+
     # -- 4. the slice
     n_tau = para.totalTauNum
     varK = gen.standard_normal((3, para.totalLoopNum, BATCH))
     varT = gen.random((n_tau, BATCH)) * BETA
     launches = {}
     for mode in ("fused", "bucketed"):
-        c = compiled[mode]
-        n_buckets = len(buckets_of(c.lowered))
-        n_levels = sum(1 for lvl in c.lowered.levels if level_buckets(lvl))
-        ref_leaf = make_leaf_evaluator(c.tables, beta=BETA, kF=KF, lam=LAM, device=dev,
-                                       dtype=torch.float64)
-        ref_graph = make_evaluator(c.lowered, device=dev, dtype=torch.float64, kernel=False)
-        ref = ref_graph(ref_leaf(varK, varT))
-        torch.cuda.synchronize()
-        kernel_fn.launches = level_fn.launches = 0
-        got = c(varK, varT)
-        torch.cuda.synchronize()
-        launches[mode] = level_fn.launches + kernel_fn.launches
-        if level_fn.launches != n_levels or kernel_fn.launches != 0:
-            fail(f"{mode}: {level_fn.launches} level launches and {kernel_fn.launches} bucket "
-                 f"launches, expected {n_levels} (one per level that holds buckets) and 0")
-        if got.shape != (len(roots), BATCH) or not torch.isfinite(got).all():
-            fail(f"{mode}: output not finite or of shape {tuple(got.shape)}")
-        d = (got.double() - ref).abs()
-        per_root = d.max(dim=1).values / ref.abs().max(dim=1).values
-        scale_err = (d.max() / ref.abs().max()).item()
-        worst = per_root.max().item()
+        n_levels, errs = check_slice(compiled[mode], [(varK, varT)], f"{mode} slice")
+        launches[mode] = n_levels
+        rel, scale_err = errs[BATCH]
         print(f"slice: {mode} f32 kernel vs f64 plain on the card, batch {BATCH}: "
-              f"{launches[mode]} kernel launches per pass ({n_buckets} buckets in {n_levels} "
-              f"levels), "
-              f"max|d|/max|ref| {scale_err:.3e}, worst per-root {worst:.3e} "
-              f"(limit {SLICE_TOL:g})", flush=True)
-        if not worst <= SLICE_TOL:
-            fail(f"{mode}: per-root scale-relative error {worst:.3e} > {SLICE_TOL}")
+              f"{n_levels} kernel launches per pass ({len(buckets_of(compiled[mode].lowered))} "
+              f"buckets in {n_levels} levels), max|d|/max|ref| {scale_err:.3e}, worst per-root "
+              f"{max(rel):.3e} (limit {SLICE_TOL:g})", flush=True)
 
     phase("slices")
 
@@ -507,6 +546,91 @@ def main() -> None:
         device_ms_by_kernel summed."""
         return sum(device_ms_by_kernel(fn, n).values())
 
+    def level_bounds(low, batch, elsize):
+        """Per level that holds buckets, the least time the card could take
+        and what sets it: bytes (every distinct row the level's buckets read
+        and every row they write, once each, over the memory rate) against
+        operations (a multiply per operand and an add per term and element,
+        over the float32 rate).  Also the same bytes with the rows counted
+        once per bucket, what a launch per bucket must move."""
+        out = []
+        for lvl in low.levels:
+            bl = level_buckets(lvl)
+            if not bl:
+                continue
+            rows_out = sum(i.shape[2] for i, _, _ in bl)
+            per_level = len(np.unique(np.concatenate([i.ravel() for i, _, _ in bl])))
+            per_bucket = sum(len(np.unique(i)) for i, _, _ in bl)
+            flops = sum(i.shape[1] * i.shape[2] * (i.shape[0] + 1) for i, _, _ in bl) * batch
+            t_bytes = (per_level + rows_out) * batch * elsize / HBM_BYTES_PER_S
+            t_ops = flops / PEAK_FLOPS["float32"]
+            out.append({"ms": 1e3 * max(t_bytes, t_ops),
+                        "by": "bytes" if t_bytes >= t_ops else "operations",
+                        "per_bucket_ms": 1e3 * (per_bucket + rows_out) * batch * elsize
+                        / HBM_BYTES_PER_S,
+                        "rows": (per_level, rows_out,
+                                 sum(i.shape[0] * i.shape[1] * i.shape[2] for i, _, _ in bl))})
+        return out
+
+    def level_pass_ms(low, w, tabs):
+        """Device time of low's level launches on w (tabs: their packed
+        tables): back to back (queued_ms, the mean of a reading before and
+        one after the per-level run), per level (queued_each_ms), and each
+        level's level_bounds."""
+        levels = [lambda t=t: level_fn(w, t) for t in tabs]
+        ld1, per_level, ld2 = (queued_ms(lambda: [fn() for fn in levels]),
+                               queued_each_ms(levels),
+                               queued_ms(lambda: [fn() for fn in levels]))
+        return (ld1 + ld2) / 2, per_level, level_bounds(low, w.shape[1], w.element_size())
+
+    def levels_line(label, per_level, bounds):
+        """One line: each level's device time beside its bound."""
+        print(f"{label}, per level: device us / bound us (share), rows read distinct + written "
+              f"(gathers requested): " + "; ".join(
+                  f"L{k} {1e3 * t:.1f}/{1e3 * b['ms']:.1f} ({b['ms'] / t:.2f}) "
+                  f"{b['rows'][0]}+{b['rows'][1]} ({b['rows'][2]})"
+                  for k, (t, b) in enumerate(zip(per_level, bounds)))
+              + f"; sum {1e3 * per_level.sum():.1f} us  [{smi}]", flush=True)
+
+    def mc_lines(c, para, batches, label):
+        """Monte-Carlo samples/s of c's float32 pass at each batch, one line
+        each: the level launches of a pass (over three passes of mc_run they
+        must be the levels that hold buckets, none bucket by bucket), the
+        wall and the profiler's device busy time of one pass, the idle share
+        1 - busy / wall, and the level launches' share of busy.  A busy time
+        above the wall is a faulty clock reading and fails."""
+        n_levels = sum(1 for lvl in c.lowered.levels if level_buckets(lvl))
+        out = {}
+        for batch in batches:
+            mc_kw = dict(n_loop=para.totalLoopNum, num_tau=para.totalTauNum, batch=batch,
+                         n_roots=len(c.lowered.root_slots), device=dev, dtype=torch.float32,
+                         beta=BETA)
+
+            def one():
+                mc_run(c.fn, iters=1, seed=SEED, **mc_kw)
+
+            level_fn.launches = kernel_fn.launches = 0
+            mc_run(c.fn, iters=3, seed=SEED, **mc_kw)
+            torch.cuda.synchronize()
+            if level_fn.launches != 3 * n_levels or kernel_fn.launches != 0:
+                fail(f"{label} mc_run: {level_fn.launches} level and {kernel_fn.launches} "
+                     f"bucket launches in 3 passes, expected {3 * n_levels} and 0")
+            by_kernel = device_ms_by_kernel(one)
+            busy = sum(by_kernel.values())
+            level_busy = sum(t for k, t in by_kernel.items() if "gather_reduce_kernel" in k)
+            wall = wall_ms(one, n=20)
+            sps = mc_samples_per_s(c.fn, iters=100, reps=3, **mc_kw)
+            print(f"{label} batch {batch} f32: {sps:.1f} samples/s, {n_levels} level launches "
+                  f"a pass; per pass wall {wall:.4f} ms, device busy {busy:.4f} ms (idle share "
+                  f"{1 - busy / wall:.3f}), level launches {level_busy:.4f} ms "
+                  f"({level_busy / busy:.3f} of busy)  [{smi}]", flush=True)
+            if busy > wall:
+                fail(f"{label} batch {batch}: device busy {busy:.4f} ms above the wall "
+                     f"{wall:.4f} ms of the same pass: a faulty clock reading")
+            out[batch] = {"samples_per_s": sps, "busy_ms": busy, "wall_ms": wall,
+                          "level_busy_ms": level_busy}
+        return out
+
     # -- 4b. the Hubbard atom: the port's graph phase against the closed form
     from feynmandiagram_tpu_torch.models import hubbard_atom as ha
     series = ha.sigma_power_series(HUBBARD_BETA)
@@ -582,33 +706,145 @@ def main() -> None:
 
     phase("Hubbard atom")
 
-    # -- 5. throughput and per-pass times
-    def level_bounds(low, batch, elsize):
-        """Per level that holds buckets, the least time the card could take
-        and what sets it: bytes (every distinct row the level's buckets read
-        and every row they write, once each, over the memory rate) against
-        operations (a multiply per operand and an add per term and element,
-        over the float32 rate).  Also the same bytes with the rows counted
-        once per bucket, what a launch per bucket must move."""
-        out = []
-        for lvl in low.levels:
-            bl = level_buckets(lvl)
-            if not bl:
-                continue
-            rows_out = sum(i.shape[2] for i, _, _ in bl)
-            per_level = len(np.unique(np.concatenate([i.ravel() for i, _, _ in bl])))
-            per_bucket = sum(len(np.unique(i)) for i, _, _ in bl)
-            flops = sum(i.shape[1] * i.shape[2] * (i.shape[0] + 1) for i, _, _ in bl) * batch
-            t_bytes = (per_level + rows_out) * batch * elsize / HBM_BYTES_PER_S
-            t_ops = flops / PEAK_FLOPS["float32"]
-            out.append({"ms": 1e3 * max(t_bytes, t_ops),
-                        "by": "bytes" if t_bytes >= t_ops else "operations",
-                        "per_bucket_ms": 1e3 * (per_bucket + rows_out) * batch * elsize
-                        / HBM_BYTES_PER_S,
-                        "rows": (per_level, rows_out,
-                                 sum(i.shape[0] * i.shape[1] * i.shape[2] for i, _, _ in bl))})
-        return out
+    # -- 4c. config 4: the self-energy's counterterm series through the kernel
+    from feynmandiagram_tpu_torch.benchmarks.bench_config4 import config4_roots
+    t0 = time.perf_counter()
+    roots4, para4, orders4 = config4_roots()
+    print(f"host: config 4 (order-4 sigma, taylorAD([2, 2])) generated, differentiated and "
+          f"optimized in {time.perf_counter() - t0:.1f} s ({len(roots4)} roots)", flush=True)
+    config4, c4 = {}, {}
+    for mode in ("fused", "bucketed"):
+        t0 = time.perf_counter()
+        c4[mode] = compile_evaluator(roots4, max_loop_num=para4.totalLoopNum, beta=BETA, kF=KF,
+                                     lam=LAM, device=dev, dtype=torch.float32, sum_mode=mode)
+        low4 = c4[mode].lowered
+        n_plans = {k: sum(len(getattr(lvl, k)) for lvl in low4.levels)
+                   for k in ("fused", "sum_buckets", "prods", "pows")}
+        print(f"host: config 4 {mode} lowering in {time.perf_counter() - t0:.1f} s: "
+              f"{low4.num_slots} slots, {low4.num_edges} edges, {len(low4.levels)} levels; "
+              f"{n_plans['fused']} FusedBuckets, {n_plans['sum_buckets']} SumBuckets, "
+              f"{n_plans['prods']} ProdPlans, {n_plans['pows']} PowerPlans", flush=True)
+    del roots4
+    phase("config 4: host")
+    # fused at the batches of the checks and of the timed passes below, the
+    # bucketed lowering at one small batch only, to keep the run short
+    for mode, batches in (("fused", (BATCH, RAGGED_BATCH, 2 * BATCH)),
+                          ("bucketed", (CHECK_BATCH,))):
+        low4 = c4[mode].lowered
+        samples = [(gen.standard_normal((3, para4.totalLoopNum, batch)),
+                    gen.random((para4.totalTauNum, batch)) * BETA) for batch in batches]
+        n_levels, errs = check_slice(c4[mode], samples, f"config 4 {mode}", orders4)
+        for batch, (rel, _) in errs.items():
+            k = int(np.argmax(rel))
+            print(f"config4: {mode} f32 kernel vs f64 plain on the card, batch {batch}: "
+                  f"{n_levels} level launches a pass ({n_levels} levels of {len(low4.levels)} "
+                  f"hold buckets; {len(orders4)} roots); worst per-root max|d|/max|ref| "
+                  f"{rel[k]:.3e} at root {k}, (g_order, v_order) {orders4[k]} (limit "
+                  f"{SLICE_TOL:g})", flush=True)
+        config4[mode] = {"launches_per_pass": n_levels,
+                         "max_rel_err": max(max(rel) for rel, _ in errs.values())}
+    phase("config 4: checks")
+    fused4, batch = c4.pop("fused"), 2 * BATCH
+    del c4
+    config4["fused"].update({f"mc_{b}": m for b, m in mc_lines(
+        fused4, para4, (batch, 2 * batch), "config4 mc: fused").items()})
+    # where a pass's host time goes: the leaf phase and the graph phase
+    # alone, each on the clocks of the mc lines
+    vk = torch.randn((3, para4.totalLoopNum, batch), generator=dev_gen, device=dev)
+    vt = torch.rand((para4.totalTauNum, batch), generator=dev_gen, device=dev) * BETA
+    leaves4 = fused4.leaf_fn(vk, vt)
+    tab = fused4.tables
+    n_groups = len(set(zip(tab.leaf_type.tolist(), tab.g_order.tolist(), tab.v_order.tolist())))
+    split = {name: (wall_ms(fn, n=20), busy_ms(fn)) for name, fn in (
+        ("leaf phase", lambda: fused4.leaf_fn(vk, vt)),
+        ("graph phase", lambda: fused4.graph_fn(leaves4)))}
+    config4["fused"]["split_ms"] = {name: {"wall_ms": a, "busy_ms": b}
+                                    for name, (a, b) in split.items()}
+    low4 = fused4.lowered
+    tabs4 = tables_of(low4, torch.float32)
+    n_pows = sum(len(lvl.pows) for lvl in low4.levels)
+    print(f"config4 split: fused batch {batch} f32, one call alone, wall / device busy: "
+          + "; ".join(f"{name} {a:.4f} / {b:.4f} ms" for name, (a, b) in split.items())
+          + f" ({len(tabs4)} level launches and {n_pows} PowerPlans in the graph phase, "
+          f"{n_groups} (leaf type, order) groups in the leaf phase)  [{smi}]", flush=True)
+    w = rand_w(low4.num_slots, batch, torch.float32)
+    ld, per_level, bounds = level_pass_ms(low4, w, tabs4)
+    plain = sum(queued_ms(lambda t=t: level_plain(w, t)) for t in tabs4)
+    bound = sum(b["ms"] for b in bounds)
+    config4["fused"].update({"ms": ld, "plain_ms": plain, "bound_ms": bound,
+                             "bound_by": max(bounds, key=lambda b: b["ms"])["by"],
+                             "library_ms": None, "batch": batch})
+    print(f"config4 time: fused batch {batch} f32, the buckets of a pass, device, back to "
+          f"back: {len(tabs4)} level launches {ld:.4f} ms ({bound / ld:.3f} of the bound "
+          f"{bound:.4f} ms); plain, level by level, {plain:.4f} ms  [{smi}]", flush=True)
+    levels_line(f"config4 levels: fused batch {batch} f32", per_level, bounds)
+    del fused4, w, tabs4, leaves4, vk, vt
+    torch.cuda.empty_cache()
 
+    phase("config 4: times")
+
+    # -- 4d. the exact-diagonalization oracle on the card, in float64
+    from feynmandiagram_tpu_torch.models import atom_ed
+    from feynmandiagram_tpu_torch.models.free_fermion import green_kernel
+    ed_beta, ed_mu = 2.0, 0.4
+    taus = torch.rand(ED_TAUS, generator=dev_gen, dtype=torch.float64, device=dev)
+    taus = (2 * taus - 1) * ed_beta
+    free = atom_ed.hubbard_atom_model(0.0, ed_mu, ed_beta)
+    g_ed = free.g_tau(taus, device=dev)
+    g_free = green_kernel(taus, torch.tensor(-ed_mu, dtype=torch.float64, device=dev), ed_beta)
+    if g_ed.dtype != torch.float64 or g_ed.device.type != "cuda":
+        fail(f"atom_ed.g_tau: {g_ed.dtype} on {g_ed.device}, expected float64 on the card")
+    free_err = ((g_ed - g_free).abs() / g_free.abs()).max().item()
+    cpu_err = ((g_ed.cpu() - free.g_tau(taus.cpu(), device="cpu")).abs()
+               / g_ed.cpu().abs()).max().item()
+    print(f"ed: U=0 atom (beta {ed_beta}, mu {ed_mu}), g_tau on the card in float64 at "
+          f"{ED_TAUS} taus in (-beta, beta) vs the free kernel: max rel {free_err:.3e} (limit "
+          f"{ED_RTOL:g}); vs the same on the CPU: max rel {cpu_err:.3e} (limit {ED_RTOL:g})",
+          flush=True)
+    if not (free_err <= ED_RTOL and cpu_err <= ED_RTOL):
+        fail("atom_ed.g_tau on the card: off the free kernel or off the CPU")
+    sig_err = 0.0
+    for u, mu, beta in ED_SIGMA_CASES:
+        ghat = atom_ed.hubbard_atom_model(u, mu, beta).g_matsubara(4, device=dev)
+        for n in range(4):
+            wn = (2 * n + 1) * math.pi / beta
+            sig = 1j * wn + mu - 1.0 / (-ghat[n])
+            want = -ha.exact_sigma(wn, u, beta, mu)
+            err = abs(sig - want)
+            sig_err = max(sig_err, err / abs(want))
+            if not err <= 1e-10 + 1e-8 * abs(want):
+                fail(f"ED sigma at U {u}, mu {mu}, beta {beta}, n {n}: {sig} against the closed "
+                     f"form {want}")
+    print(f"ed: the ED self-energy iw + mu - 1/G against -exact_sigma at (U, mu, beta) "
+          f"{ED_SIGMA_CASES}, n 0-3: max rel {sig_err:.3e} (limit 1e-8 + 1e-10 absolute)",
+          flush=True)
+    u, mu, beta = ED_HOP
+    g_at = atom_ed.hubbard_atom_model(u, mu, beta).g_matsubara(2, device=dev)
+    hop = []
+    for t in (0.02, 0.04):
+        g01 = atom_ed.hubbard_dimer_model(t, u, mu, beta).g_matsubara(2, 0, 1, device=dev)
+        for n in range(2):
+            hop.append(abs(g01[n] - t * g_at[n] ** 2) / t ** 3)
+    wick = max(abs(m.g2_connected(0.8, 0.35, 0.6, 0.1, *modes, device=dev))
+               for m in (atom_ed.hubbard_atom_model(0.0, 0.3, 1.2),
+                         atom_ed.hubbard_dimer_model(0.7, 0.0, 0.1, 0.9))
+               for modes in ((0, 0, 0, 0), (0, 1, 1, 0)))
+    print(f"ed: dimer (U, mu, beta) {ED_HOP}, t 0.02 and 0.04, n 0-1: |G01 - t g_atom^2| / t^3 "
+          f"max {max(hop):.4f} (limit 0.05); U=0 connected 4-point, atom and dimer, max "
+          f"{wick:.3e} (limit 1e-10)", flush=True)
+    if not (max(hop) < 0.05 and wick < 1e-10):
+        fail("ED dimer: first-order hopping identity or Wick's theorem at U=0 broken")
+    def ed_one():
+        free.g_tau(taus, device=dev)
+
+    ed_busy, ed_wall = busy_ms(ed_one), wall_ms(ed_one)
+    print(f"ed time: g_tau of the atom at {ED_TAUS} taus, float64, one call: device busy "
+          f"{ed_busy:.4f} ms, wall {ed_wall:.4f} ms  [{smi}]", flush=True)
+    del taus, g_ed, g_free
+
+    phase("ED oracle")
+
+    # -- 5. throughput and per-pass times
     def sparse_buckets(low):
         """Each n_op = 1 bucket of low as the [count, num_slots] CSR matrix
         whose product with w is the bucket's function."""
@@ -689,12 +925,9 @@ def main() -> None:
             return lambda: [fn() for fn in fns]
 
         kd, pd = in_turns(lambda op: buckets_ms(op, w, bl), kernel_fn, plain_fn)
-        ld1, per_level, ld2 = (queued_ms(level_pass()), queued_each_ms(all_levels()),
-                               queued_ms(level_pass()))
-        ld = (ld1 + ld2) / 2
+        ld, per_level, bounds = level_pass_ms(c.lowered, w, tabs)
         kb, pb = in_turns(wall_ms, all_buckets(kernel_fn), all_buckets(plain_fn))
         lb = wall_ms(level_pass())
-        bounds = level_bounds(c.lowered, BATCH, 4)
         bound = sum(b["ms"] for b in bounds)
         times[mode] = {"level_ms": ld, "bucket_ms": kd, "plain_ms": pd, "bound_ms": bound,
                        "bound_by": max(bounds, key=lambda b: b["ms"])["by"]}
@@ -712,12 +945,7 @@ def main() -> None:
               f"Wall: level launches {lb:.4f} ms, bucket by bucket {kb:.4f} ms, plain "
               f"{pb:.4f} ms; graph phase wall kernel {kg:.4f} ms vs plain {pg:.4f} ms, queued "
               f"{gq:.4f} ms  [{smi}]", flush=True)
-        print(f"levels: {mode} batch {BATCH} f32, per level: device us / bound us (share), "
-              f"rows read distinct + written (gathers requested): " + "; ".join(
-                  f"L{k} {1e3 * t:.1f}/{1e3 * b['ms']:.1f} ({b['ms'] / t:.2f}) "
-                  f"{b['rows'][0]}+{b['rows'][1]} ({b['rows'][2]})"
-                  for k, (t, b) in enumerate(zip(per_level, bounds)))
-              + f"; sum {1e3 * per_level.sum():.1f} us  [{smi}]", flush=True)
+        levels_line(f"levels: {mode} batch {BATCH} f32", per_level, bounds)
         for batch in (BATCH, 4 * BATCH):
             wg = w if batch == BATCH else rand_w(c.lowered.num_slots, batch, torch.float32)
             geo = {g: queued_ms(lambda: [level_fn(wg, t, geometry=g) for t in tabs])
@@ -745,25 +973,7 @@ def main() -> None:
                   f"{len(mats)} buckets' CSR matrices with w, back to back: {lib_ms:.4f} ms "
                   f"(level launches {ld:.4f} ms)  [{smi}]", flush=True)
             del mats, outs
-        for batch in (BATCH, 2 * BATCH):
-            mc_kw = dict(n_loop=para.totalLoopNum, num_tau=n_tau, batch=batch,
-                         n_roots=len(roots), device=dev, dtype=torch.float32, beta=BETA)
-
-            def one():
-                mc_run(c.fn, iters=1, seed=SEED, **mc_kw)
-
-            level_fn.launches = kernel_fn.launches = 0
-            mc_run(c.fn, iters=3, seed=SEED, **mc_kw)
-            torch.cuda.synchronize()
-            if level_fn.launches != 3 * len(tabs) or kernel_fn.launches != 0:
-                fail(f"mc_run {mode}: {level_fn.launches} level and {kernel_fn.launches} bucket "
-                     f"launches in 3 passes, expected {3 * len(tabs)} and 0")
-            busy, wall = busy_ms(one), wall_ms(one, n=20)
-            sps = mc_samples_per_s(c.fn, iters=100, reps=3, **mc_kw)
-            print(f"mc: {mode} batch {batch} f32: {sps:.1f} samples/s, {len(tabs)} kernel "
-                  f"launches per pass; per pass wall "
-                  f"{wall:.4f} ms, device busy {busy:.4f} ms (idle share "
-                  f"{max(0.0, 1 - busy / wall):.3f})  [{smi}]", flush=True)
+        mc_lines(c, para, (BATCH, 2 * BATCH), f"mc: {mode}")
 
     phase("times and Monte-Carlo runs")
 
@@ -1320,7 +1530,8 @@ def main() -> None:
                      "plain_ms": bucketed["plain_ms"], "bound_ms": bucketed["bound_ms"],
                      "bound_by": bucketed["bound_by"], "library_ms": bucketed["library_ms"],
                      "bucket_by_bucket_ms": bucketed["bucket_ms"]},
-        "hubbard": {str(order): h for order, h in hubbard.items()}}] + [{
+        "hubbard": {str(order): h for order, h in hubbard.items()},
+        "config4": config4}] + [{
             "name": f"probe_{name}", "route": "cuda",
             "source": "feynmandiagram_tpu_torch/csrc/row_probes.cu",
             "replaces": f"benchmarks/probe_mosaic_caps.py:{PROBE_LINE[name]}",

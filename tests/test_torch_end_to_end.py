@@ -21,7 +21,7 @@ from feynmandiagram_tpu_torch.mc import mc_run, mc_samples_per_s  # noqa: E402
 from feynmandiagram_tpu_torch.ops.evaluator import make_evaluator  # noqa: E402
 from feynmandiagram_tpu_torch.ops.leaf_eval import make_leaf_evaluator  # noqa: E402
 
-from test_torch_host import PORT, REF, generate  # noqa: E402
+from test_torch_host import PORT, REF, generate, generate_taylor  # noqa: E402
 
 BETA, KF, LAM = 0.5, 1.919, 1.0
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -107,8 +107,11 @@ def test_port_artifact_loads_in_jax(tmp_path):
 
 def test_port_runs_with_jax_blocked(tmp_path):
     """A fresh interpreter with jax and the JAX package blocked imports the
-    port, generates, lowers and evaluates order-2 Gamma4, imports and runs
-    the two probe modules on the CPU, and loads no module of either."""
+    port, generates, lowers and evaluates order-2 Gamma4; generates,
+    differentiates (``taylorAD([2, 2])``), lowers and evaluates the order-2
+    self-energy's counterterm series (config 4); runs the ED oracle; imports
+    and runs the two probe modules on the CPU, and loads no module of
+    either."""
     roots, _, para = _vertex4(2)
     varK, varT = _samples(para, 8, 11)
     expected = np.asarray(jax_compile.compile_evaluator(
@@ -116,6 +119,13 @@ def test_port_runs_with_jax_blocked(tmp_path):
         dtype=np.float64, layout="flat")(varK, varT))
     np.save(tmp_path / "varK.npy", varK)
     np.save(tmp_path / "varT.npy", varT)
+    sigma_roots, sigma_para, _ = generate_taylor(REF, 2)
+    sigmaK, sigmaT = _samples(sigma_para, 8, 12)
+    sigma_expected = np.asarray(jax_compile.compile_evaluator(
+        sigma_roots, max_loop_num=sigma_para.totalLoopNum, beta=BETA, kF=KF, lam=LAM,
+        dtype=np.float64, layout="flat")(sigmaK, sigmaT))
+    np.save(tmp_path / "sigmaK.npy", sigmaK)
+    np.save(tmp_path / "sigmaT.npy", sigmaT)
     script = f"""
 import sys
 sys.modules["jax"] = None
@@ -134,6 +144,14 @@ c = compile_evaluator(roots, max_loop_num=para.totalLoopNum, beta={BETA}, kF={KF
                       lam={LAM}, device="cpu", dtype=torch.float64)
 out = c(np.load({str(tmp_path / 'varK.npy')!r}), np.load({str(tmp_path / 'varT.npy')!r}))
 np.save({str(tmp_path / 'out.npy')!r}, out.numpy())
+from feynmandiagram_tpu_torch.benchmarks.bench_config4 import build_config4
+c4, _, orders = build_config4(2, device="cpu", dtype=torch.float64)
+assert len(set(orders)) == 9 and c4.tables.g_order.max() == c4.tables.v_order.max() == 2
+out = c4(np.load({str(tmp_path / 'sigmaK.npy')!r}), np.load({str(tmp_path / 'sigmaT.npy')!r}))
+np.save({str(tmp_path / 'sigma_out.npy')!r}, out.numpy())
+from feynmandiagram_tpu_torch.models.atom_ed import hubbard_atom_model
+assert abs(hubbard_atom_model(3.0, 0.0, 1.0).g2_connected(0.8, 0.35, 0.6, 0.1, 0, 1, 1, 0,
+                                                          device="cpu")) > 1e-3
 from feynmandiagram_tpu_torch.benchmarks import probe_gather, probe_mosaic_caps
 assert probe_mosaic_caps.case_acc(*probe_mosaic_caps.probe_inputs("cpu"))[0, :2].tolist() \\
     == [2432, 2436]
@@ -146,6 +164,7 @@ assert not loaded, loaded
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", script], check=True, env=env, timeout=300)
     assert_close(np.load(tmp_path / "out.npy"), expected)
+    assert_close(np.load(tmp_path / "sigma_out.npy"), sigma_expected)
 
 
 def test_default_device_raises_without_cuda():

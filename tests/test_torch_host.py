@@ -7,9 +7,14 @@ factors, so every array is compared with ``np.array_equal``.  The native and
 the numpy ``cse``/``depth`` of the port agree with the reference's on the
 same record arrays.
 
+Taylor-expanded self-energies (``taylorAD([2, 2])``, the config-4
+counterterm series) are generated by each package with its own
+``taylorAD`` and must give identical lowered tables and identical leaf
+tables, counterterm orders included.
+
 Other test files import this one's helpers: ``generate`` (a diagram set from
-either package) and ``to_port`` (a reference graph carried into the port's
-classes).
+either package), ``generate_taylor`` (its counterterm series) and
+``to_port`` (a reference graph carried into the port's classes).
 """
 import dataclasses
 import importlib
@@ -46,6 +51,23 @@ def generate(pkg, kind, order, level=1):
     roots = [r["diagram"] for r in rows]
     cg.optimize_inplace(roots, level=level)
     return roots, para
+
+
+def generate_taylor(pkg, order):
+    """``(roots, para, root_orders)``: package ``pkg``'s order-``order``
+    self-energy, Taylor-expanded by its own ``taylorAD`` in the G and V
+    counterterm orders up to 2 each and optimized again, the roots sorted by
+    order tuple (the steps of ``benchmarks/bench_config4.py``)."""
+    fe = importlib.import_module(f"{pkg}.frontends")
+    cg = importlib.import_module(f"{pkg}.computational_graph")
+    utility = importlib.import_module(f"{pkg}.utility")
+    roots, para = generate(pkg, "sigma", order)
+    dict_g = utility.taylorAD(roots, [2, 2],
+                              [lambda p: isinstance(p, fe.BareGreenId),
+                               lambda p: isinstance(p, fe.BareInteractionId)])
+    all_roots = [g for o in sorted(dict_g) for g in dict_g[o]]
+    cg.optimize_inplace(all_roots, level=1)
+    return all_roots, para, [o for o in sorted(dict_g) for _ in dict_g[o]]
 
 
 def lower_with(pkg, roots, **kw):
@@ -212,3 +234,46 @@ def test_numpy_path_lowers_identically(numpy_path, generated):
     ref_roots, port_roots = generated("vertex4", 2)
     assert_same_lowering(lower_with(PORT, port_roots, sum_mode="fused", cse=True),
                          lower_with(REF, ref_roots, sum_mode="fused", cse=True))
+
+
+def leaf_tables_with(pkg, roots, lowered, max_loop_num):
+    compile_mod = importlib.import_module(f"{pkg}.backends.compile")
+    leaf_eval = importlib.import_module(f"{pkg}.ops.leaf_eval")
+    return leaf_eval.leaf_tables_from_lowered(lowered, compile_mod.leaf_graphs_of(roots),
+                                              max_loop_num)
+
+
+@pytest.fixture(scope="module")
+def taylor_generated():
+    cache = {}
+
+    def get(order):
+        if order not in cache:
+            cache[order] = (generate_taylor(REF, order), generate_taylor(PORT, order))
+        return cache[order]
+
+    return get
+
+
+TAYLOR_CASES = ([(order, m, c) for order in (2, 3) for m, c in MODES]
+                + [(4, "fused", True)])
+
+
+@pytest.mark.parametrize("order,sum_mode,cse", TAYLOR_CASES)
+def test_taylor_lowerings_and_leaf_tables_identical(taylor_generated, order, sum_mode, cse):
+    """``taylorAD([2, 2])`` of order-``order`` sigma, each package on its
+    own: the same order tuples, identical lowered tables, and identical
+    leaf tables (``g_order``, ``v_order`` included), with counterterm
+    leaves of every order up to 2 in each variable."""
+    (ref_roots, para, ref_orders), (port_roots, _, port_orders) = taylor_generated(order)
+    assert port_orders == ref_orders and len(set(port_orders)) == 9
+    assert type(port_roots[0]).__module__.startswith(PORT + ".")
+    low_p = lower_with(PORT, port_roots, sum_mode=sum_mode, cse=cse)
+    low_r = lower_with(REF, ref_roots, sum_mode=sum_mode, cse=cse)
+    assert_same_lowering(low_p, low_r)
+    tab_p = leaf_tables_with(PORT, port_roots, low_p, para.totalLoopNum)
+    tab_r = leaf_tables_with(REF, ref_roots, low_r, para.totalLoopNum)
+    for f in dataclasses.fields(tab_r):
+        x, y = getattr(tab_p, f.name), getattr(tab_r, f.name)
+        assert x.dtype == y.dtype and np.array_equal(x, y), f.name
+    assert set(tab_p.g_order.tolist()) == set(tab_p.v_order.tolist()) == {0, 1, 2}
