@@ -20,6 +20,23 @@ output line or more each:
    float32 for sum_mode 'fused' and 'bucketed', against the port's plain
    path in float64 on the card, with the kernel's launch count per pass,
    which must be the number of levels that hold buckets;
+4a. the scale-out layer (``parallel``, ``utils.initialize_distributed``),
+   ``scale-out:`` lines: NCCL with one rank over a ``file://`` store, where
+   ``shard_compiled`` of the fused slice and ``make_mc_step`` must equal the
+   unsharded evaluator and ``mc.mc_run`` bit for bit; the order-4 Gamma4
+   graph-sharded pass (``lower_sharded_best`` at 4 ranks, fused, float32) on
+   a local 4-rank graph mesh on the card, its planner's sizes against the
+   JAX package's, its 13 level launches a rank reading the level's halo
+   (``level_gather_reduce(src=halo)``), bit for bit against the unsharded
+   evaluator on the same lowering at batch 4096 and 4097 and within
+   SLICE_TOL of the float64 plain path; the same for the bucketed lowering
+   (16 launches a rank); the kernel against its plain version through
+   ``src`` on every level of rank 0 for the four dtype pairs; the
+   graph-sharded MC step of ``examples/config5_serving.py`` on a local 4 x 2
+   mesh against the unsharded evaluator on the same draws;
+   ``benchmarks/certify_sharded.py``'s line; the sharded pass's device and
+   wall time, its level launches back to back, its halo gathers and the
+   unsharded pass on the same lowering;
 4b. the Hubbard atom (``models.hubbard_atom``) at beta 2.3, U 1, mu 0, the
    lowest Matsubara frequency, orders 1-5, float32: the kernel's launches
    in one pass of each order against the number of levels that hold
@@ -130,6 +147,15 @@ TRACE_TRIES = 5         # profiler traces taken before one without device time f
 QUEUED_REPS = 5         # timed repeats of queued_ms, of which the median counts
 QUEUED_BUCKETS = 16     # buckets timed in one queued_ms call
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet: the rate the bounds are taken at
+# the scale-out phase: the graph axis, the order-4 sharded plans' sizes as the
+# JAX package's planner gives them (full slots, slots a rank, halo bytes a
+# sample in float32, halo padding, early share) and level launches a rank;
+# the MC step's iterations and its tolerance where the sums are not
+# reproduced bit for bit
+N_GRAPH = 4
+SHARD_PLAN = {"fused": ((11680, 1846, 64720, 1.092, 0.432), 13),
+              "bucketed": ((22590, 3083, 108576, 1.059, 0.190), 16)}
+SHARD_MC_ITERS, SHARD_MC_TOL = 4, 1e-6
 PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12}   # same sheet, dense
 RAGGED_BATCH = 4097     # no multiple of 4: rows lose their 16-byte alignment
 M = 2 ** 20
@@ -630,6 +656,245 @@ def main() -> None:
             out[batch] = {"samples_per_s": sps, "busy_ms": busy, "wall_ms": wall,
                           "level_busy_ms": level_busy}
         return out
+
+    # -- 4a. scale-out: NCCL with one rank, the graph-sharded pass on a local mesh
+    import tempfile
+    import torch.distributed as dist
+    from feynmandiagram_tpu_torch.backends.compile import leaf_graphs_of
+    from feynmandiagram_tpu_torch.benchmarks import certify_sharded
+    from feynmandiagram_tpu_torch.examples import config5_serving
+    from feynmandiagram_tpu_torch.ops.leaf_eval import leaf_tables_from_lowered
+    from feynmandiagram_tpu_torch.parallel import (Mesh, lower_sharded_best,
+                                                   make_graph_sharded_evaluator, make_mc_step,
+                                                   make_sample_mesh, rank_seed, shard_compiled)
+    from feynmandiagram_tpu_torch.utils import initialize_distributed
+
+    c = compiled["fused"]
+    num_tau_tab = int(max(c.tables.tau_in.max(), c.tables.tau_out.max()))
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(f"file://{tmp}/store", 1, 0, device=dev)
+        try:
+            mesh1 = make_sample_mesh(device=dev)
+            got = shard_compiled(c, mesh1)(varK, varT)
+            want = c(varK, varT)
+            means = make_mc_step(c, mesh1, beta=BETA)(SEED, BATCH)
+            ref = mc_run(c.fn, n_loop=c.max_loop_num, num_tau=num_tau_tab, batch=BATCH,
+                         n_roots=len(c.lowered.root_slots), device=dev, dtype=torch.float32,
+                         iters=1, beta=BETA, seed=rank_seed(SEED, 0)) / BATCH
+            torch.cuda.synchronize()
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    print(f"scale-out: {backend} with one rank ({mesh1.shape}): shard_compiled of the fused "
+          f"slice at batch {BATCH} vs the unsharded evaluator bit for bit: "
+          f"{torch.equal(got, want)}; make_mc_step vs mc_run on the same generator bit for "
+          f"bit: {torch.equal(means, ref)}", flush=True)
+    if backend != "nccl" or not (torch.equal(got, want) and torch.equal(means, ref)):
+        fail(f"scale-out: {backend} one-rank mesh differs from the unsharded path")
+    del got, want
+
+    mesh_g = Mesh([("graph", N_GRAPH)], device=dev)
+    leafmap = leafmap_of(roots)
+    sharded_runs = {}
+    for mode in ("fused", "bucketed"):
+        t0 = time.perf_counter()
+        low_s, sched = lower_sharded_best(roots, leafmap, N_GRAPH, sum_mode=mode)
+        tables_s = leaf_tables_from_lowered(low_s, leaf_graphs_of(roots), para.totalLoopNum)
+        sh = make_graph_sharded_evaluator(low_s, mesh_g, dtype=torch.float32)
+        built = time.perf_counter() - t0
+        st = sh.stats
+        sizes = (st.full_slots, st.local_slots, st.halo_bytes_per_sample(),
+                 round(st.halo_pad_overhead, 3), round(st.early_share, 3))
+        n_lvl = sum(1 for lv in sh.device_eval.levels if lv[0].tables is not None)
+        want_sizes, want_lvl = SHARD_PLAN[mode]
+        print(f"scale-out: {mode} order-4 Gamma4 on a local {N_GRAPH}-rank graph mesh "
+              f"(schedule {sched}, planned in {built:.1f} s): full slots {sizes[0]}, slots a "
+              f"rank {sizes[1]}, halo {sizes[2]} B/sample f32, pad {sizes[3]}, early "
+              f"{sizes[4]}, {n_lvl} level launches a rank (the JAX planner: {want_sizes}, "
+              f"{want_lvl})", flush=True)
+        if sizes != want_sizes or n_lvl != want_lvl or n_lvl != sum(
+                1 for lvl in low_s.levels if level_buckets(lvl)):
+            fail(f"scale-out {mode}: plan {sizes}, {n_lvl} launches a rank, not the JAX "
+                 f"planner's {want_sizes}, {want_lvl}")
+        single = make_evaluator(low_s, device=dev, dtype=torch.float32)
+        leaf32 = make_leaf_evaluator(tables_s, beta=BETA, kF=KF, lam=LAM, device=dev,
+                                     dtype=torch.float32)
+        leaf64 = make_leaf_evaluator(tables_s, beta=BETA, kF=KF, lam=LAM, device=dev,
+                                     dtype=torch.float64)
+        plain64 = make_evaluator(low_s, device=dev, dtype=torch.float64, kernel=False)
+        for batch in ((BATCH, RAGGED_BATCH) if mode == "fused" else (BATCH,)):
+            vk = gen.standard_normal((3, para.totalLoopNum, batch))
+            vt = gen.random((para.totalTauNum, batch)) * BETA
+            leaves = leaf32(vk, vt)
+            want = single(leaves)
+            torch.cuda.synchronize()
+            level_fn.launches = kernel_fn.launches = 0
+            got = sh(leaves)
+            torch.cuda.synchronize()
+            n_launch = level_fn.launches
+            ref = plain64(leaf64(vk, vt))
+            d = (got.double() - ref).abs()
+            rel = (d.max(dim=1).values / ref.abs().max(dim=1).values).max().item()
+            print(f"scale-out: {mode} sharded pass, batch {batch} f32: {n_launch} level launches "
+                  f"({n_launch // N_GRAPH} a rank), {kernel_fn.launches} bucket launches; vs the "
+                  f"unsharded evaluator on the same lowering bit for bit: "
+                  f"{torch.equal(got, want)}; vs the f64 plain path worst per-root "
+                  f"{rel:.3e} (limit {SLICE_TOL:g})", flush=True)
+            if n_launch != N_GRAPH * want_lvl or kernel_fn.launches != 0:
+                fail(f"scale-out {mode}, batch {batch}: {n_launch} level and "
+                     f"{kernel_fn.launches} bucket launches, expected {N_GRAPH * want_lvl}, 0")
+            if got.shape != want.shape or not torch.equal(got, want):
+                fail(f"scale-out {mode}, batch {batch}: the sharded roots differ from the "
+                     f"unsharded evaluator's: max|diff| {(got - want).abs().max().item():.3e}")
+            if not rel <= SLICE_TOL:
+                fail(f"scale-out {mode}, batch {batch}: {rel:.3e} from the f64 plain path")
+            sharded_runs[mode, batch] = (sh, leaves, single, n_launch)
+        if mode == "fused":
+            fused_low, fused_tables, fused_single = low_s, tables_s, single
+        del leaf64, plain64
+
+    # the kernel against its plain version through src, every level of rank
+    # 0, for the four dtype pairs; Kahan bit for bit, plain sums within the
+    # bound of check_levels
+    sh, leaves, _, _ = sharded_runs["fused", BATCH]
+    src_err, out_scale = {}, 0.0
+    for batch in (BATCH, RAGGED_BATCH):
+        ev = sh.device_eval
+        ws = ev.init(sh.blocks(sharded_runs["fused", batch][1]))
+        for li, halo in ev.halos(ws):
+            t32 = ev.levels[li][0].tables
+            if t32 is None:
+                ev.compute(li, ws, halo)
+                continue
+            bl = [(i.cpu().numpy(), f.cpu().numpy(), st_) for i, f, st_ in
+                  kernels.unpack_level(t32)]
+            for storage, acc in ((torch.float32, None), (torch.float64, None),
+                                 (torch.float32, torch.float64), (torch.bfloat16, torch.float32)):
+                fac_dtype = acc or storage
+                t = kernels.pack_level(bl, dev, fac_dtype)
+                w0, h = ws[0].to(storage), halo.to(storage)
+                wm = w0.abs().double()
+                level_plain(wm, kernels.pack_level([(i, np.abs(f), st_) for i, f, st_ in bl],
+                                                   dev, torch.float64), src=h.abs().double())
+                for comp in (False, True):
+                    wk, wp = w0.clone(), w0.clone()
+                    level_fn(wk, t, src=h, compensated=comp, acc_dtype=acc)
+                    level_plain(wp, t, src=h, compensated=comp, acc_dtype=acc)
+                    diff = (wk.double() - wp.double()).abs()
+                    bound = RTOL[type_name(fac_dtype)] * wm
+                    if acc not in (None, storage):
+                        bound = bound + STORE_ULP[type_name(storage)] * wm
+                    ok = not bool(diff.any()) if comp else not bool((diff > bound).any())
+                    if not torch.isfinite(wk).all() or not ok:
+                        fail(f"scale-out: level {li} of rank 0 through src, "
+                             f"{type_name(storage)}/{type_name(fac_dtype)} batch {batch} "
+                             f"compensated={comp}: max|diff| {diff.max().item():.3e}")
+                    key = (type_name(storage), type_name(fac_dtype), comp)
+                    src_err[key] = max(src_err.get(key, 0.0), diff.max().item())
+                    out_scale = max(out_scale, wp.abs().max().item())
+            ev.compute(li, ws, halo)
+        del ws
+    print("scale-out: level kernel = plain through src=halo on every level of rank 0, batches "
+          f"{BATCH} and {RAGGED_BATCH}, the pass's own values (outputs up to "
+          f"{out_scale:.3e}), max|diff| (Kahan must be 0): " + ", ".join(
+              f"{s_}/{a_}{' Kahan' if k_ else ''} {e:.3e}" for (s_, a_, k_), e in
+              src_err.items()), flush=True)
+
+    # the graph-sharded MC step of examples/config5_serving.py on a local 4 x 2
+    # mesh, against the unsharded evaluator on the same draws
+    level_fn.launches = kernel_fn.launches = 0
+    sh_means, sh_step, sh_mesh = config5_serving.serve(
+        fused_low, fused_tables, device=dev, batch_per_device=BATCH, iters=SHARD_MC_ITERS,
+        seed=SEED)
+    torch.cuda.synchronize()
+    mc_launch = level_fn.launches
+    n_batch = sh_mesh.shape["batch"]
+    leaf32 = make_leaf_evaluator(fused_tables, beta=BETA, kF=KF, lam=LAM, device=dev,
+                                 dtype=torch.float32)
+    n_tau = int(max(fused_tables.tau_in.max(), fused_tables.tau_out.max()))
+    per_rank, mc_dtype = [], sh_means.dtype
+    for b in range(n_batch):
+        acc = torch.zeros(len(fused_low.root_slots), dtype=mc_dtype, device=dev)
+        for i in range(SHARD_MC_ITERS):
+            g_ = torch.Generator(device=dev)
+            g_.manual_seed(rank_seed(SEED, b, i))
+            vk = torch.randn((3, para.totalLoopNum, BATCH), generator=g_, dtype=mc_dtype,
+                             device=dev)
+            vt = torch.rand((n_tau, BATCH), generator=g_, dtype=mc_dtype, device=dev) * BETA
+            acc = acc + fused_single(leaf32(vk, vt)).sum(dim=1)
+        per_rank.append(acc / (SHARD_MC_ITERS * BATCH))
+    mc_ref = per_rank[0]
+    for m in per_rank[1:]:
+        mc_ref = mc_ref + m
+    mc_ref = mc_ref / n_batch
+    mc_bitwise = torch.equal(sh_means, mc_ref)
+    mc_rel = ((sh_means.double() - mc_ref.double()).abs().max()
+              / mc_ref.double().abs().max()).item()
+    want_launch = n_batch * SHARD_MC_ITERS * N_GRAPH * SHARD_PLAN["fused"][1]
+    held = ("bit for bit" if mc_bitwise
+            else f"scale-relative {mc_rel:.3e} (limit {SHARD_MC_TOL:g}), not bit for bit")
+    print(f"scale-out: graph-sharded MC step on a local {sh_mesh.shape} mesh, batch {BATCH} a "
+          f"device, {SHARD_MC_ITERS} iterations: {mc_launch} level launches (expected "
+          f"{want_launch}); means vs the unsharded evaluator on the same draws: {held}",
+          flush=True)
+    if mc_launch != want_launch or not (mc_bitwise or mc_rel <= SHARD_MC_TOL):
+        fail(f"scale-out MC step: {mc_launch} launches, means {mc_rel:.3e} from the reference")
+
+    # benchmarks/certify_sharded.py on the same roots
+    try:
+        cert = certify_sharded.certify(4, N_GRAPH, BATCH, dev, roots=roots)
+    except RuntimeError as err:
+        fail(f"scale-out: certify_sharded: {err}")
+    print(f"scale-out: certify_sharded {json.dumps(cert)}", flush=True)
+
+    # times of the sharded fused pass at batch 4096, beside the unsharded one
+    sh, leaves, single, n_launch = sharded_runs["fused", BATCH]
+    ev = sh.device_eval
+    ws, halos = ev.init(sh.blocks(leaves)), []
+    for li, halo in ev.halos(ws):
+        halos.append(halo)
+        ev.compute(li, ws, halo)
+    launch_fns = [lambda w=w, t=lv.tables, h=halos[li]: level_fn(w, t, src=h)
+                  for li, per_rank_lv in enumerate(ev.levels)
+                  for w, lv in zip(ws, per_rank_lv) if lv.tables is not None]
+    sends = ([ev.early[0]] + [x for li in range(len(ev.levels))
+                              for x in [ev.late[li]] + ev.early[li + 1:li + 2]]
+             + [ev.root_send])
+    sh_busy, sh_wall = busy_ms(lambda: sh(leaves)), wall_ms(lambda: sh(leaves))
+    sh_levels = queued_ms(lambda: [fn() for fn in launch_fns])
+    sh_plain = sum(queued_ms(lambda li=li: [level_plain(w, lv.tables, src=halos[li])
+                                            for w, lv in zip(ws, ev.levels[li])])
+                   for li in range(len(ev.levels)))
+    sh_halo = queued_ms(lambda: [ev.gather(ws, s_) for s_ in sends])
+    # bound of the level launches: each launch's distinct rows read (from the
+    # halo) and rows written, once each, over the memory rate, against its
+    # operations over the float32 rate
+    sh_tabs = [lv.tables for per_rank_lv in ev.levels for lv in per_rank_lv
+               if lv.tables is not None]
+    t_bytes = sum(t.rows_touched for t in sh_tabs) * BATCH * 4 / HBM_BYTES_PER_S
+    t_ops = sum(int((t.desc[:, 1] * t.desc[:, 2] * (t.desc[:, 3] + 1)).sum())
+                for t in sh_tabs) * BATCH / PEAK_FLOPS["float32"]
+    sh_bound = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    un_busy, un_wall = busy_ms(lambda: single(leaves)), wall_ms(lambda: single(leaves))
+    sharded_report = {"launches_per_pass": n_launch, "ms": sh_levels, "plain_ms": sh_plain,
+                      "bound_ms": sh_bound[0], "bound_by": sh_bound[1],
+                      "max_abs_err": src_err["float32", "float32", False],
+                      "max_abs_err_kahan": src_err["float32", "float32", True],
+                      "levels_per_rank": SHARD_PLAN["fused"][1], "ranks": N_GRAPH,
+                      "busy_ms": sh_busy, "wall_ms": sh_wall, "halo_ms": sh_halo,
+                      "unsharded_busy_ms": un_busy, "unsharded_wall_ms": un_wall,
+                      "batch": BATCH, "mc_bit_for_bit": mc_bitwise}
+    print(f"scale-out time: fused sharded pass, {N_GRAPH} local ranks, batch {BATCH} f32: device "
+          f"busy {sh_busy:.4f} ms, wall {sh_wall:.4f} ms a pass; its {len(launch_fns)} level "
+          f"launches back to back {sh_levels:.4f} ms ({sh_bound[0] / sh_levels:.3f} of the "
+          f"bound {sh_bound[0]:.4f} ms; plain, level by level, {sh_plain:.4f} ms); its "
+          f"{len(sends)} halo gathers back to back {sh_halo:.4f} ms; the unsharded "
+          f"pass on the same lowering: busy {un_busy:.4f} ms, wall {un_wall:.4f} ms  [{smi}]",
+          flush=True)
+    del sharded_runs, sh, ev, ws, halos, launch_fns, leaves, single, fused_single
+    torch.cuda.empty_cache()
+
+    phase("scale-out")
 
     # -- 4b. the Hubbard atom: the port's graph phase against the closed form
     from feynmandiagram_tpu_torch.models import hubbard_atom as ha
@@ -1530,6 +1795,7 @@ def main() -> None:
                      "plain_ms": bucketed["plain_ms"], "bound_ms": bucketed["bound_ms"],
                      "bound_by": bucketed["bound_by"], "library_ms": bucketed["library_ms"],
                      "bucket_by_bucket_ms": bucketed["bucket_ms"]},
+        "sharded": sharded_report,
         "hubbard": {str(order): h for order, h in hubbard.items()},
         "config4": config4}] + [{
             "name": f"probe_{name}", "route": "cuda",

@@ -17,11 +17,14 @@
 // (bf16, f32), the last its half-width-buffer mode
 // (feynmandiagram_tpu/ops/evaluator.py:224-239).  Results go straight into
 // rows start .. start+count of w (the TPU kernel returned a block that the
-// caller copied in with dynamic_update_slice).  The caller guarantees that
-// no idx entry of any bucket of the launch lies in the destination rows of
-// any bucket of the launch (ops/evaluator.py::check_lowered): the launch
-// reads and writes w, never the same row, and its items may run in any
-// order.
+// caller copied in with dynamic_update_slice).  A level launch may read its
+// rows from a second buffer `src` of w's type and batch (the halo of a
+// graph-sharded level, feynmandiagram_tpu/parallel/graph_shard.py:442-472):
+// idx then indexes rows of src, and the outputs still go to w.  Without one,
+// src is w, and the caller guarantees that no idx entry of any bucket of the
+// launch lies in the destination rows of any bucket of the launch
+// (ops/evaluator.py::check_lowered): the launch reads and writes w, never the
+// same row, and its items may run in any order.
 //
 // What bounds it on an H100: bytes.  A term costs n_op gathered rows of
 // `batch` elements and ~2 flops per element read, far below the card's ridge
@@ -63,9 +66,9 @@
 //   of 64 terms starts early and is not the tail of its group.
 // - 16 bytes per thread per load (float4, double2, 8 x bf16) where w's base
 //   and row pitch are 16-byte aligned; else the same body with V = 1.
-// - Rows are read through a const __restrict__ pointer: no row read by a
-//   launch is written by it, so loads may pass the stores of the pieces
-//   before.
+// - Rows are read through a const __restrict__ pointer, `win` (src, or w):
+//   no row read by a launch is written by it, so loads may pass the stores
+//   of the pieces before.  With a separate src the two are two buffers.
 // - n_op differs between items: a block-uniform switch into the body
 //   templated on it.
 //
@@ -311,6 +314,7 @@ gather_reduce_kernel(T* __restrict__ wout, const T* __restrict__ win,
 
 struct Launch {
   void* w;
+  const void* src;          // rows the indices read: w itself, or another buffer
   const void* idx_pool;
   const void* fac_pool;
   const void* tiles;        // nullptr: one bucket, `single`
@@ -334,15 +338,16 @@ template <typename T, typename A, int V, bool KAHAN> cudaError_t launch_v(const 
   g.n_items = groups * per_group * p.n_records;
   const int64_t grid = g.n_items < INT32_MAX ? g.n_items : INT32_MAX;
   gather_reduce_kernel<T, A, V, KAHAN><<<static_cast<unsigned>(grid), kThreads, 0, p.stream>>>(
-      static_cast<T*>(p.w), static_cast<const T*>(p.w), static_cast<const int32_t*>(p.idx_pool),
-      static_cast<const A*>(p.fac_pool), static_cast<const Tile*>(p.tiles), p.single, g,
-      p.batch);
+      static_cast<T*>(p.w), static_cast<const T*>(p.src),
+      static_cast<const int32_t*>(p.idx_pool), static_cast<const A*>(p.fac_pool),
+      static_cast<const Tile*>(p.tiles), p.single, g, p.batch);
   return cudaGetLastError();
 }
 
 template <typename T, typename A> cudaError_t launch_ta(const Launch& p, int compensated) {
   constexpr int kVec = 16 / sizeof(T);
   const bool aligned = reinterpret_cast<uintptr_t>(p.w) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(p.src) % 16 == 0 &&
                        (p.batch * static_cast<int64_t>(sizeof(T))) % 16 == 0;
   if (aligned) {
     return compensated ? launch_v<T, A, kVec, true>(p) : launch_v<T, A, kVec, false>(p);
@@ -366,13 +371,14 @@ cudaError_t launch(const Launch& p, int storage, int acc, int compensated) {
 // compensated selects the Kahan recurrence; group_cols is the width of a
 // column group in elements.
 
-// All buckets of a level: tiles is the [n_records, 8] int32 tile table.
-extern "C" int fd_level_gather_reduce(void* w, const void* idx_pool, const void* fac_pool,
-                                      const void* tiles, int n_records, long long batch,
-                                      int storage, int acc, int compensated,
+// All buckets of a level: tiles is the [n_records, 8] int32 tile table; the
+// indices read rows of src, which is w or a buffer of w's type and batch.
+extern "C" int fd_level_gather_reduce(void* w, const void* src, const void* idx_pool,
+                                      const void* fac_pool, const void* tiles, int n_records,
+                                      long long batch, int storage, int acc, int compensated,
                                       long long group_cols, void* stream) {
-  if (tiles == nullptr) return cudaErrorInvalidValue;
-  const Launch p{w, idx_pool, fac_pool, tiles, Tile{}, n_records,
+  if (tiles == nullptr || src == nullptr) return cudaErrorInvalidValue;
+  const Launch p{w, src, idx_pool, fac_pool, tiles, Tile{}, n_records,
                  batch, group_cols, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(launch(p, storage, acc, compensated));
 }
@@ -389,7 +395,7 @@ extern "C" int fd_bucket_gather_reduce(void* w, const void* idx, const void* fac
     return cudaErrorInvalidValue;
   }
   const Tile single{static_cast<int32_t>(start), 0, arity, n_op, 0, 0, count, pieces << 16};
-  const Launch p{w, idx, fac, nullptr, single,
+  const Launch p{w, w, idx, fac, nullptr, single,
                  (count + kRows - 1) / kRows * (kItemPieces / pieces),
                  batch, group_cols, static_cast<cudaStream_t>(stream)};
   return static_cast<int>(launch(p, storage, acc, compensated));

@@ -12,10 +12,13 @@ and the ``FusedBucket`` primitive of ``sum_mode='fused'`` (``n_op <= 4``).
 ``level_gather_reduce`` does that for all buckets of a level in one launch,
 from tables that ``pack_level`` packs once and uploads: no bucket of a level
 reads a row that another one writes (``ops/evaluator.py::check_lowered``), so
-they may run at once.  ``bucket_gather_reduce`` is the one-bucket call of the
-same kernel.  On a CUDA tensor either wrapper launches the hand-written CUDA
-kernel in ``csrc/bucket_gather_reduce.cu``; on a CPU tensor it runs its plain
-PyTorch version.  Nothing falls back: a CUDA build or launch failure raises.
+they may run at once.  Given ``src``, a level reads its rows from that buffer
+instead of ``w`` (the halo of a graph-sharded level,
+``parallel/graph_shard.py``) and writes them to ``w``.
+``bucket_gather_reduce`` is the one-bucket call of the same kernel.  On a
+CUDA tensor either wrapper launches the hand-written CUDA kernel in
+``csrc/bucket_gather_reduce.cu``; on a CPU tensor it runs its plain PyTorch
+version.  Nothing falls back: a CUDA build or launch failure raises.
 The kernel is built at first use (``ops/build.py``).
 """
 from __future__ import annotations
@@ -77,7 +80,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.fd_level_gather_reduce
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_void_p]
 
@@ -126,24 +129,27 @@ def _check(w: torch.Tensor, idx: torch.Tensor, fac: torch.Tensor, start: int) ->
 def bucket_gather_reduce_plain(w: torch.Tensor, idx: torch.Tensor, fac: torch.Tensor,
                                start: int, *, compensated: bool = False,
                                acc_dtype: Optional[torch.dtype] = None,
-                               chunk_rows: Optional[int] = None) -> None:
+                               chunk_rows: Optional[int] = None,
+                               src: Optional[torch.Tensor] = None) -> None:
     """Plain PyTorch version of the kernel, on any device, in place on ``w``.
 
     Term order follows the JAX evaluator: ``(w[idx[0]] * fac) * w[idx[1]] *
-    ...``, then a sum over the terms (Kahan-compensated if asked).
+    ...``, then a sum over the terms (Kahan-compensated if asked).  With
+    ``src`` the terms read rows of ``src`` instead of ``w``.
     ``chunk_rows`` bounds the temporaries to ``n_op * arity * chunk_rows``
     gathered rows."""
     _check(w, idx, fac, start)
+    rows = w if src is None else src
     n_op, arity, count = idx.shape
     a = acc_dtype or w.dtype
     step = chunk_rows or count
     for c0 in range(0, count, step):
         c1 = min(c0 + step, count)
         ix = idx[:, :, c0:c1]
-        block = torch.index_select(w, 0, ix[0].reshape(-1)).view(arity, c1 - c0, -1)
+        block = torch.index_select(rows, 0, ix[0].reshape(-1)).view(arity, c1 - c0, -1)
         block = block.to(a) * fac[:, c0:c1, None].to(a)
         for k in range(1, n_op):
-            block = block * torch.index_select(w, 0, ix[k].reshape(-1)).view(
+            block = block * torch.index_select(rows, 0, ix[k].reshape(-1)).view(
                 arity, c1 - c0, -1).to(a)
         if compensated:
             s = block[0]
@@ -257,13 +263,15 @@ class LevelTables:
     rows ``start .. start + count`` of ``w``, its shape, its offsets into the
     pools and the first of its row tiles in the tiles' order; the plain
     version reads the buckets back through it.  ``row_end`` is one past the
-    last row of ``w`` that the level writes, ``rows_touched`` the rows it
-    reads (distinct) and writes."""
+    last row of ``w`` that the level writes, ``max_index`` the largest row
+    that it reads, ``rows_touched`` the rows it reads (distinct) and
+    writes."""
     idx: torch.Tensor
     fac: torch.Tensor
     records: Dict[int, torch.Tensor]
     desc: np.ndarray
     row_end: int
+    max_index: int
     rows_touched: int
 
     def records_for(self, w: torch.Tensor,
@@ -299,8 +307,8 @@ def pack_level(buckets: Sequence[Bucket], device, fac_dtype: torch.dtype) -> Lev
 
     Descriptors keep the buckets' order; row tiles are ordered by falling
     ``n_op * arity`` (stable), so that the launch starts its longest items
-    first.  Raises on an empty list, an empty bucket or ``n_op`` outside
-    ``1..MAX_N_OP``."""
+    first.  Raises on an empty list, an empty bucket, a negative index or
+    ``n_op`` outside ``1..MAX_N_OP``."""
     if not buckets:
         raise ValueError("a level without buckets has no tables")
     desc = np.zeros((len(buckets), len(DESC_FIELDS)), np.int64)
@@ -328,12 +336,14 @@ def pack_level(buckets: Sequence[Bucket], device, fac_dtype: torch.dtype) -> Lev
     n_tiles = -(-desc[:, 1] // TILE_ROWS)
     desc[order, 6] = np.cumsum(n_tiles[order]) - n_tiles[order]
     idx_pool = np.concatenate(idx_parts)
+    if idx_pool.min() < 0:
+        raise ValueError(f"the level reads row {int(idx_pool.min())}")
     return LevelTables(
         idx=torch.as_tensor(idx_pool, device=device),
         fac=torch.as_tensor(np.concatenate(fac_parts), device=device).to(fac_dtype),
         records={widest: torch.as_tensor(_tile_records(desc, widest), device=device)
                  for widest in RECORD_WIDTHS},
-        desc=desc, row_end=row_end,
+        desc=desc, row_end=row_end, max_index=int(idx_pool.max()),
         rows_touched=len(np.unique(idx_pool)) + int(desc[:, 1].sum()))
 
 
@@ -348,50 +358,75 @@ def unpack_level(tables: LevelTables) -> List[Tuple[torch.Tensor, torch.Tensor, 
     return out
 
 
+def _check_level(w: torch.Tensor, tables: LevelTables, src: Optional[torch.Tensor]) -> None:
+    """Raise unless ``tables`` fit ``w`` and the buffer they read, ``src``
+    or ``w``: one device, one dtype and batch, the written rows inside ``w``
+    and every index inside the read buffer (``max_index``, from the host)."""
+    _check_w(w)
+    rows = w
+    if src is not None:
+        _check_w(src)
+        if (src.device, src.dtype, src.shape[1]) != (w.device, w.dtype, w.shape[1]):
+            raise ValueError(f"src ({src.device}, {src.dtype}, batch {src.shape[1]}) differs "
+                             f"from w ({w.device}, {w.dtype}, batch {w.shape[1]})")
+        rows = src
+    if tables.row_end > w.shape[0]:
+        raise ValueError(f"the level writes rows up to {tables.row_end} of w's {w.shape[0]}")
+    if tables.max_index >= rows.shape[0]:
+        raise ValueError(f"the level reads row {tables.max_index} of a buffer of "
+                         f"{rows.shape[0]} rows")
+
+
 def level_gather_reduce_plain(w: torch.Tensor, tables: LevelTables, *,
                               compensated: bool = False,
                               acc_dtype: Optional[torch.dtype] = None,
-                              chunk_rows: Optional[int] = None) -> None:
+                              chunk_rows: Optional[int] = None,
+                              src: Optional[torch.Tensor] = None) -> None:
     """Plain PyTorch version of the level kernel, on any device, in place:
     ``bucket_gather_reduce_plain`` over the buckets read back from the
-    packed tables."""
+    packed tables, reading rows of ``src`` where it is given."""
+    _check_level(w, tables, src)
     for idx, fac, start in unpack_level(tables):
         bucket_gather_reduce_plain(w, idx, fac, start, compensated=compensated,
-                                   acc_dtype=acc_dtype, chunk_rows=chunk_rows)
+                                   acc_dtype=acc_dtype, chunk_rows=chunk_rows, src=src)
 
 
 def level_gather_reduce(w: torch.Tensor, tables: LevelTables, *, compensated: bool = False,
                         acc_dtype: Optional[torch.dtype] = None,
                         chunk_rows: Optional[int] = None,
-                        geometry: Optional[Tuple[int, int]] = None) -> None:
+                        geometry: Optional[Tuple[int, int]] = None,
+                        src: Optional[torch.Tensor] = None) -> None:
     """Run every bucket of ``tables`` on ``w``, in place.
 
-    A CUDA ``w`` launches the kernel once, on the current stream, with the
-    types, rounding and ``geometry`` of ``bucket_gather_reduce``; the
-    caller guarantees that no bucket reads a destination row of the level
-    and that indices and rows lie inside ``w`` (``check_lowered``).  A CPU
-    ``w`` runs ``level_gather_reduce_plain``.  Any other device raises.
-    ``level_gather_reduce.launches`` counts kernel launches."""
+    The indices are rows of ``src`` where it is given (a buffer of ``w``'s
+    device, dtype and batch), else of ``w``; the outputs go to ``w``.
+    Every call checks that the level's rows lie inside ``w`` and its indices
+    inside the buffer it reads.  A CUDA ``w`` launches the kernel once, on
+    the current stream, with the types, rounding and ``geometry`` of
+    ``bucket_gather_reduce``; reading ``w`` itself, the caller guarantees
+    that no bucket reads a destination row of the level
+    (``check_lowered``).  A CPU ``w`` runs ``level_gather_reduce_plain``.
+    Any other device raises.  ``level_gather_reduce.launches`` counts kernel
+    launches."""
     if w.device.type == "cpu":
         level_gather_reduce_plain(w, tables, compensated=compensated, acc_dtype=acc_dtype,
-                                  chunk_rows=chunk_rows)
+                                  chunk_rows=chunk_rows, src=src)
         return
     if w.device.type != "cuda":
         raise ValueError(f"level_gather_reduce runs on cuda or cpu tensors, "
                          f"not {w.device.type}")
-    _check_w(w)
+    _check_level(w, tables, src)
     records = tables.records_for(w, geometry)
     if not (tables.idx.device == w.device and tables.fac.device == w.device
             and records.device == w.device):
         raise ValueError("w and the level tables must lie on one device")
-    if tables.row_end > w.shape[0]:
-        raise ValueError(f"the level writes rows up to {tables.row_end} of w's {w.shape[0]}")
     storage, acc = cuda_type_codes(w.dtype, tables.fac.dtype, acc_dtype)
     lib = build.load("bucket_gather_reduce", _bind)
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
         err = lib.fd_level_gather_reduce(
-            w.data_ptr(), tables.idx.data_ptr(), tables.fac.data_ptr(),
+            w.data_ptr(), (w if src is None else src).data_ptr(),
+            tables.idx.data_ptr(), tables.fac.data_ptr(),
             records.data_ptr(), records.shape[0], w.shape[1], storage, acc,
             int(compensated), _group_cols(w, tables.rows_touched, geometry), stream)
     if err != 0:

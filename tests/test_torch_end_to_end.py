@@ -110,8 +110,9 @@ def test_port_runs_with_jax_blocked(tmp_path):
     port, generates, lowers and evaluates order-2 Gamma4; generates,
     differentiates (``taylorAD([2, 2])``), lowers and evaluates the order-2
     self-energy's counterterm series (config 4); runs the ED oracle; imports
-    and runs the two probe modules on the CPU, and loads no module of
-    either."""
+    and runs the two probe modules on the CPU; builds a graph-sharded
+    evaluator on a local 4-rank mesh and holds it to the unsharded one; and
+    loads no module of either."""
     roots, _, para = _vertex4(2)
     varK, varT = _samples(para, 8, 11)
     expected = np.asarray(jax_compile.compile_evaluator(
@@ -157,6 +158,16 @@ assert probe_mosaic_caps.case_acc(*probe_mosaic_caps.probe_inputs("cpu"))[0, :2]
     == [2432, 2436]
 x = probe_gather.make_inputs("cpu", 64, 16, 64, 32, 8)
 assert probe_gather.gather_scale_sum(x["w"], x["idx"], x["fac"]).shape == (8, 16)
+from feynmandiagram_tpu_torch.backends.compile import leafmap_of
+from feynmandiagram_tpu_torch.ops import lower, make_evaluator
+from feynmandiagram_tpu_torch.parallel import Mesh, make_graph_sharded_evaluator
+from feynmandiagram_tpu_torch.utils import initialize_distributed
+low = lower(roots, leafmap_of(roots), sum_mode="fused", cse=True, reuse_slots=False)
+vals = np.random.default_rng(3).uniform(0.5, 1.5, (low.num_leaves - len(low.const_slots), 4))
+sharded = make_graph_sharded_evaluator(low, Mesh([("graph", 4)], device="cpu"))
+assert sharded.stats.local_slots < low.num_slots
+assert torch.allclose(sharded(vals), make_evaluator(low, device="cpu")(vals), rtol=1e-12,
+                      atol=0)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "feynmandiagram_tpu") and sys.modules[m])
 assert not loaded, loaded

@@ -432,3 +432,87 @@ def test_level_order_is_free():
     level_gather_reduce_plain(a, pack_level(buckets, "cpu", F64))
     level_gather_reduce_plain(b, pack_level(buckets[::-1], "cpu", F64))
     assert torch.equal(a, b)
+
+
+def _loop_reference(rows, buckets, out):
+    """Each bucket's outputs written with a loop over outputs and terms, in
+    float64: out[start + c] = sum_a fac[a, c] * prod_k rows[idx[k, a, c]]."""
+    for idx, fac, start in buckets:
+        n_op, arity, count = idx.shape
+        for c in range(count):
+            acc = 0.0
+            for a in range(arity):
+                term = rows[idx[0, a, c]] * fac[a, c]
+                for k in range(1, n_op):
+                    term = term * rows[idx[k, a, c]]
+                acc = acc + term
+            out[start + c] = acc
+    return out
+
+
+@pytest.mark.parametrize("batch", [16, 13])
+@pytest.mark.parametrize("compensated", [False, True])
+def test_level_plain_reads_src(compensated, batch):
+    """With ``src`` the indices are rows of src and the outputs rows of w (a
+    graph-sharded level reading its halo): against a loop over the buckets
+    written here, and through the CPU wrapper bit for bit; w's other rows
+    stay as they were."""
+    buckets, rows = _level_case(10, S=30)
+    rng = np.random.default_rng(11)
+    src = torch.from_numpy(rng.uniform(0.5, 1.5, (30, batch)))
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, (rows, batch)))
+    tables = pack_level(buckets, "cpu", F64)
+    assert tables.max_index == max(int(i.max()) for i, _, _ in buckets)
+    got, via_wrapper = w.clone(), w.clone()
+    level_gather_reduce_plain(got, tables, compensated=compensated, src=src)
+    level_gather_reduce(via_wrapper, tables, compensated=compensated, src=src)
+    ref = _loop_reference(src.numpy(), buckets, w.numpy().copy())
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-13, atol=0)
+    assert torch.equal(via_wrapper, got)
+    # a w whose source rows hold other values gives the same outputs: the
+    # level did not read w
+    other = torch.zeros_like(w)
+    level_gather_reduce_plain(other, tables, compensated=compensated, src=src)
+    written = np.zeros(rows, bool)
+    for idx, _, start in buckets:
+        written[start:start + idx.shape[2]] = True
+    assert torch.equal(other[torch.from_numpy(written)], got[torch.from_numpy(written)])
+    assert torch.equal(got[~torch.from_numpy(written)], w[~torch.from_numpy(written)])
+
+
+def test_level_src_none_reads_w_as_before():
+    """``src=None`` is the level reading w itself: the same bits as passing
+    a copy of w as src (no row of the level is both read and written)."""
+    buckets, rows = _level_case(12)
+    w = torch.from_numpy(np.random.default_rng(13).uniform(0.5, 1.5, (rows, 9)))
+    tables = pack_level(buckets, "cpu", F64)
+    a, b = w.clone(), w.clone()
+    level_gather_reduce(a, tables)
+    level_gather_reduce(b, tables, src=w.clone())
+    assert torch.equal(a, b) and not torch.equal(a, w)
+
+
+@pytest.mark.parametrize("bad", ["index_past_src", "row_end_past_w", "src_dtype",
+                                 "src_batch", "src_1d", "negative_index"])
+def test_level_wrapper_rejects_bad_src(bad):
+    buckets, rows = _level_case(14, S=20)
+    tables = pack_level(buckets, "cpu", F64)
+    w, src = torch.ones((rows, 8), dtype=F64), torch.ones((20, 8), dtype=F64)
+    if bad == "index_past_src":
+        src = src[:tables.max_index]
+    elif bad == "row_end_past_w":
+        w = w[:tables.row_end - 1]
+    elif bad == "src_dtype":
+        src = src.float()
+    elif bad == "src_batch":
+        src = torch.ones((20, 9), dtype=F64)
+    elif bad == "src_1d":
+        src = src[:, 0]
+    else:
+        idx, fac, start = buckets[0]
+        with pytest.raises(ValueError):
+            pack_level([(idx - idx.max() - 1, fac, start)], "cpu", F64)
+        return
+    for fn in (level_gather_reduce, level_gather_reduce_plain):
+        with pytest.raises(ValueError):
+            fn(w.clone(), tables, src=src)
