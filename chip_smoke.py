@@ -70,6 +70,21 @@ output line or more each:
    launch's bytes, Monte-Carlo samples/s of both slices with their launch
    counts and the device's idle share (1 - the profiler's busy time / the
    wall; a busy time above the wall fails as a faulty reading);
+5a. GV-table diagrams from the port's bundled tables (``gv:`` lines): Σ at
+   order 6 (``diagsGV`` -> ``optimize_inplace(1)`` -> ``compile_evaluator``)
+   fused and bucketed at batch 4096 in float32, its slots, edges, levels
+   and buckets against the CPU lowering's (GV_SIGMA6), the pass against the
+   float64 plain path, every level against its plain version, the level
+   launches beside their bound and the plain version, ``torch.sparse.mm``
+   of the bucketed pass's buckets, samples/s of the fused pass at 4096 and
+   16384; charge polarization at order 5 through the same checks; the Σ-3
+   counterterm file of the Feynman-graph reader beside ``taylorAD``'s
+   coefficient of the same order, leaf == 1 on the card against the host
+   interpreter; the torch source export of the optimized Σ-4 roots against
+   the level launches in float64; ``benchmarks/profile_pass.py`` of the
+   fused order-4 Gamma4 pass in a fresh process (``gv profile_pass:``
+   lines), its phases' device time against the pass's ``queued_ms``, and
+   the unprofiled pass's wall with the scopes' code and without;
 6. the bucket kernel's storage x accumulation pairs: kernel against plain
    for float32/float64 and bfloat16/float32 on random buckets and on every
    order-4 fused bucket, and against the float64 sum rounded once to
@@ -157,6 +172,12 @@ SHARD_PLAN = {"fused": ((11680, 1846, 64720, 1.092, 0.432), 13),
               "bucketed": ((22590, 3083, 108576, 1.059, 0.190), 16)}
 SHARD_MC_ITERS, SHARD_MC_TOL = 4, 1e-6
 PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12}   # same sheet, dense
+# the GV phase: slots, edges, levels and buckets of the order-6 sigma
+# lowerings on the CPU, the source export's limit, and the share of a pass's
+# busy time the profiler's phases must hold
+GV_SIGMA6 = {"fused": (27792, 133097, 5, 21), "bucketed": (43440, 148112, 6, 8)}
+EXPORT_RTOL = 1e-12
+PROFILE_COVER = 0.8
 RAGGED_BATCH = 4097     # no multiple of 4: rows lose their 16-byte alignment
 M = 2 ** 20
 # (widest record in pieces, bytes a column group may touch): the kernel's
@@ -561,8 +582,11 @@ def main() -> None:
                     fn()
                 torch.cuda.synchronize()
                 time.sleep(0.01)
+            # the hot path's profiler scopes show on the device as annotation
+            # spans over their kernels: those are not kernels
             by_kernel = {e.key: getattr(e, "self_device_time_total", 0) / n / 1e3
-                         for e in prof.key_averages() if str(e.device_type).endswith("CUDA")}
+                         for e in prof.key_averages()
+                         if str(e.device_type).endswith("CUDA") and not e.is_user_annotation}
             if sum(by_kernel.values()) > 0:
                 return by_kernel
         fail(f"the profiler saw no device time in {TRACE_TRIES} traces")
@@ -1202,6 +1226,7 @@ def main() -> None:
         leaves = c.leaf_fn(varK, varT)
         kg, pg = in_turns(wall_ms, lambda: c.graph_fn(leaves), lambda: plain_graph(leaves))
         gq = queued_ms(lambda: c.graph_fn(leaves))
+        times[mode]["graph_wall_ms"] = kg
         print(f"time: {mode} batch {BATCH} f32, the buckets of a pass, device, back to back: "
               f"{len(tabs)} level launches {ld:.4f} ms ({bound / ld:.3f} of the bound "
               f"{bound:.4f} ms = distinct rows per level + written rows over 3.35 TB/s; rows "
@@ -1238,9 +1263,284 @@ def main() -> None:
                   f"{len(mats)} buckets' CSR matrices with w, back to back: {lib_ms:.4f} ms "
                   f"(level launches {ld:.4f} ms)  [{smi}]", flush=True)
             del mats, outs
-        mc_lines(c, para, (BATCH, 2 * BATCH), f"mc: {mode}")
+        times[mode]["mc"] = mc_lines(c, para, (BATCH, 2 * BATCH), f"mc: {mode}")
 
     phase("times and Monte-Carlo runs")
+
+    # -- 5a. GV-table diagrams through the level kernel, the source export, the
+    # profiler's phases
+    import contextlib
+    import subprocess
+    from types import SimpleNamespace
+    from feynmandiagram_tpu_torch import mc as mc_mod
+    from feynmandiagram_tpu_torch.backends import compile_python, to_python_str
+    from feynmandiagram_tpu_torch.computational_graph import eval_graph
+    from feynmandiagram_tpu_torch.frontends import gv as gv_front
+    from feynmandiagram_tpu_torch.ops import evaluator as evaluator_mod
+    from feynmandiagram_tpu_torch.ops import leaf_eval as leaf_eval_mod
+    from feynmandiagram_tpu_torch.taylor import set_variables
+    from feynmandiagram_tpu_torch.utility import taylorexpansion_feynman
+
+    def gv_read(kind, order):
+        """GV diagrams of kind at order from the port's bundled tables,
+        optimized at level 1, with their loop and tau counts read from the
+        leaves; and the seconds it took."""
+        t0 = time.perf_counter()
+        rts = list(gv_front.diagsGV(kind, order))
+        ids = [leaf.properties for leaf in leaf_graphs_of(rts).values()]
+        optimize_inplace(rts, level=1)
+        sizes = SimpleNamespace(totalLoopNum=max(len(i.extK) for i in ids),
+                                totalTauNum=max(max(i.extT) for i in ids))
+        return rts, sizes, time.perf_counter() - t0
+
+    def gv_samples(sizes, batch):
+        return (gen.standard_normal((3, sizes.totalLoopNum, batch)),
+                gen.random((sizes.totalTauNum, batch)) * BETA)
+
+    def plan_counts(low):
+        """Slots, edges, levels and buckets (fused and sum) of low."""
+        return (low.num_slots, low.num_edges, len(low.levels),
+                sum(len(lvl.fused) + len(lvl.sum_buckets) for lvl in low.levels))
+
+    def level_errs(low, label):
+        """check_levels of low at BATCH in float32, Kahan off and on."""
+        w = rand_w(low.num_slots, BATCH, torch.float32)
+        return {comp: check_levels(low, w, torch.float32, None, comp,
+                                   f"{label} batch {BATCH} compensated={comp}")
+                for comp in (False, True)}
+
+    # profile_pass of the fused order-4 Gamma4 pass in a fresh process, whose
+    # profiler has not traced before; started now, so that its host work and
+    # its traced passes run while this process reads the order-6 tables on
+    # the host and launches nothing
+    prof_cmd = ("import sys; sys.modules['jax'] = None; sys.modules['feynmandiagram_tpu'] = None; "
+                "from feynmandiagram_tpu_torch.benchmarks.profile_pass import main; main()")
+    torch.cuda.synchronize()
+    prof_t0 = time.perf_counter()
+    prof_proc = subprocess.Popen([sys.executable, "-c", prof_cmd, "4", str(BATCH), "20",
+                                  "--levels"], cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def profile_done():
+        """Wait for profile_pass, print its table; its JSON line and the
+        seconds it took."""
+        try:
+            out, err = prof_proc.communicate(timeout=600)
+        finally:
+            if prof_proc.poll() is None:
+                prof_proc.kill()
+                prof_proc.wait()
+        if prof_proc.returncode != 0:
+            fail(f"profile_pass exited {prof_proc.returncode}: {err[-3000:]}")
+        out_lines = out.strip().splitlines()
+        for line in out_lines[:-1]:
+            if line.strip():
+                print(f"gv profile_pass: {line}", flush=True)
+        return json.loads(out_lines[-1])["profile_pass"], time.perf_counter() - prof_t0
+
+    try:
+        roots6, sizes6, read_s = gv_read("sigma", 6)
+    except BaseException:
+        prof_proc.kill()
+        prof_proc.wait()
+        raise
+    prof, prof_s = profile_done()
+    print(f"gv: sigma order 6 read from the port's bundled tables and optimized in "
+          f"{read_s:.1f} s: {len(roots6)} roots; max_loop_num {sizes6.totalLoopNum} and "
+          f"{sizes6.totalTauNum} taus, from the leaves", flush=True)
+    gv6 = {}
+    for mode in ("fused", "bucketed"):
+        t0 = time.perf_counter()
+        c6 = compile_evaluator(roots6, max_loop_num=sizes6.totalLoopNum, beta=BETA, kF=KF,
+                               lam=LAM, device=dev, dtype=torch.float32, sum_mode=mode)
+        built = time.perf_counter() - t0
+        counts = plan_counts(c6.lowered)
+        n_levels, errs = check_slice(c6, [gv_samples(sizes6, BATCH)], f"gv sigma 6 {mode}")
+        rel = errs[BATCH][0]
+        print(f"gv: sigma 6 {mode}, lowered in {built:.1f} s: {counts[0]} slots, {counts[1]} "
+              f"edges, {counts[2]} levels, {counts[3]} buckets (the CPU lowering's "
+              f"{GV_SIGMA6[mode]}); f32 kernel vs f64 plain on the card, batch {BATCH}: "
+              f"{n_levels} level launches a pass, worst per-root max|d|/max|ref| "
+              f"{max(rel):.3e} (limit {SLICE_TOL:g})", flush=True)
+        if counts != GV_SIGMA6[mode]:
+            fail(f"gv sigma 6 {mode}: slots, edges, levels, buckets {counts}, not the CPU "
+                 f"lowering's {GV_SIGMA6[mode]}")
+        lerr = level_errs(c6.lowered, f"gv sigma 6 {mode}")
+        print(f"gv: level launch = plain on every level of the sigma 6 {mode} lowering, f32, "
+              f"batch {BATCH}: Kahan max|diff| {lerr[True]:.3e} (must be 0), plain sums "
+              f"max|diff| {lerr[False]:.3e}", flush=True)
+        w = rand_w(c6.lowered.num_slots, BATCH, torch.float32)
+        tabs = tables_of(c6.lowered, torch.float32)
+        ld, per_level, bounds = level_pass_ms(c6.lowered, w, tabs)
+        plain = sum(queued_ms(lambda t=t: level_plain(w, t)) for t in tabs)
+        bound = sum(b["ms"] for b in bounds)
+        rep = {"launches_per_pass": n_levels, "max_rel_err": max(rel),
+               "max_abs_err": lerr[False], "max_abs_err_kahan": lerr[True], "ms": ld,
+               "plain_ms": plain, "bound_ms": bound,
+               "bound_by": max(bounds, key=lambda b: b["ms"])["by"], "library_ms": None,
+               "batch": BATCH, "slots": counts[0], "edges": counts[1], "levels": counts[2],
+               "buckets": counts[3]}
+        lib_line = ""
+        if mode == "bucketed":
+            mats = sparse_buckets(c6.lowered)
+            for (idx, fac, start), mat in zip(buckets_of(c6.lowered), mats):
+                wk = w.clone()
+                kernel_fn(wk, torch.as_tensor(np.ascontiguousarray(idx, np.int32), device=dev),
+                          torch.as_tensor(np.ascontiguousarray(fac), device=dev).float(), start)
+                out = torch.sparse.mm(mat, w)
+                d = (out - wk[start:start + out.shape[0]]).abs().max().item()
+                if not d <= 1e-4 * out.abs().max().item():
+                    fail(f"gv sigma 6: torch.sparse.mm differs from the kernel on the bucket at "
+                         f"row {start}: max|diff| {d:.3e}")
+                del wk, out
+            rep["library_ms"] = sum(
+                queued_ms(lambda k=k: [torch.sparse.mm(m, w) for m in mats[k:k + QUEUED_BUCKETS]])
+                for k in range(0, len(mats), QUEUED_BUCKETS))
+            lib_line = (f"; torch.sparse.mm of each of the {len(mats)} buckets' CSR matrices "
+                        f"with w, back to back, {rep['library_ms']:.4f} ms")
+            del mats
+        print(f"gv time: sigma 6 {mode} batch {BATCH} f32, the buckets of a pass, device, back "
+              f"to back: {len(tabs)} level launches {ld:.4f} ms ({bound / ld:.3f} of the bound "
+              f"{bound:.4f} ms = distinct rows per level + written rows over 3.35 TB/s); "
+              f"plain, level by level, {plain:.4f} ms{lib_line}  [{smi}]", flush=True)
+        levels_line(f"gv levels: sigma 6 {mode} batch {BATCH} f32", per_level, bounds)
+        del w, tabs
+        if mode == "fused":
+            rep.update({f"mc_{b}": m for b, m in mc_lines(
+                c6, sizes6, (BATCH, 4 * BATCH), "gv mc: sigma 6 fused").items()})
+        gv6[mode] = rep
+        del c6
+        torch.cuda.empty_cache()
+    del roots6
+
+    # charge polarization at order 5, fused: the same checks, no timing
+    roots_p, sizes_p, read_s = gv_read("chargePolar", 5)
+    c_p = compile_evaluator(roots_p, max_loop_num=sizes_p.totalLoopNum, beta=BETA, kF=KF,
+                            lam=LAM, device=dev, dtype=torch.float32, sum_mode="fused")
+    n_levels, errs = check_slice(c_p, [gv_samples(sizes_p, BATCH)], "gv chargePolar 5 fused")
+    lerr = level_errs(c_p.lowered, "gv chargePolar 5 fused")
+    print(f"gv: chargePolar 5 fused (read and optimized in {read_s:.1f} s; slots, edges, "
+          f"levels, buckets {plan_counts(c_p.lowered)}, max_loop_num {sizes_p.totalLoopNum}): "
+          f"f32 kernel vs f64 plain, batch {BATCH}: {n_levels} level launches a pass, worst "
+          f"per-root {max(errs[BATCH][0]):.3e} (limit {SLICE_TOL:g}); level launch = plain on "
+          f"every level: Kahan {lerr[True]:.3e} (must be 0), plain sums {lerr[False]:.3e}",
+          flush=True)
+    del c_p, roots_p
+
+    # a counterterm file through the Feynman-graph reader, beside taylorAD's
+    # coefficient of the same order (tests/test_gv.py): leaf == 1 on the card
+    # against the host interpreter, and the level kernel's checks
+    g300 = gv_front.diagsGV("sigma", 3, 0, 0)[0]
+    ct = gv_front.diagsGV("sigma", 3, g_order=1, v_order=1)[0]
+    set_variables("x y", orders=[3, 3])
+    tvec, _ = taylorexpansion_feynman(g300, ([True, False], [False, True]))
+    n_ct = min(2, len(ct))
+    ct_vals = {}
+    for label, gs in (("tabulated Sigma3_1_1", list(ct[:n_ct])),
+                      ("taylorexpansion_feynman coefficient (1, 1)",
+                       [tvec[i].coeffs[(1, 1)] for i in range(n_ct)])):
+        low = lower(gs, leafmap_of(gs), sum_mode="fused", cse=True)
+        nl = low.num_leaves - len(low.const_slots)
+        n_lv = sum(1 for lvl in low.levels if level_buckets(lvl))
+        level_fn.launches = kernel_fn.launches = 0
+        ones = make_evaluator(low, device=dev, dtype=torch.float64)(np.ones((nl, BATCH)))
+        torch.cuda.synchronize()
+        if level_fn.launches != n_lv or kernel_fn.launches != 0:
+            fail(f"gv counterterms, {label}: {level_fn.launches} level launches, expected {n_lv}")
+        host = [eval_graph(g) for g in gs]
+        vals = gen.uniform(0.5, 1.5, (nl, BATCH))
+        got = make_evaluator(low, device=dev, dtype=torch.float32)(vals)
+        ref = make_evaluator(low, device=dev, dtype=torch.float64, kernel=False)(vals)
+        rel = ((got.double() - ref).abs().max(dim=1).values
+               / ref.abs().max(dim=1).values).max().item()
+        lerr = level_errs(low, f"gv counterterms {label}")
+        print(f"gv: sigma 3 counterterms, {label}: {len(gs)} roots, {n_lv} level launches a "
+              f"pass; leaf == 1 on the card in f64 {ones[:, 0].tolist()} vs the host "
+              f"interpreter {host}; f32 kernel vs f64 plain on leaves in [0.5, 1.5), batch "
+              f"{BATCH}: worst per-root {rel:.3e} (limit {SLICE_TOL:g}); level launch = plain: "
+              f"Kahan {lerr[True]:.3e}, plain sums {lerr[False]:.3e}", flush=True)
+        if not (torch.equal(ones, ones[:, :1].expand_as(ones)) and np.allclose(
+                ones[:, 0].tolist(), host, rtol=1e-12, atol=0) and rel <= SLICE_TOL):
+            fail(f"gv counterterms, {label}: off the host interpreter or the plain path")
+        ct_vals[label] = host
+    if not np.allclose(*ct_vals.values(), rtol=1e-12, atol=0):
+        fail(f"gv counterterms: the tabulated file and taylorAD's coefficient differ: {ct_vals}")
+
+    # the source export as a third evaluation: the optimized sigma-4 roots as
+    # torch source, node by node, against the level launches, float64
+    roots4g, sizes4g, _ = gv_read("sigma", 4)
+    c4g = compile_evaluator(roots4g, max_loop_num=sizes4g.totalLoopNum, beta=BETA, kF=KF,
+                            lam=LAM, device=dev, dtype=torch.float64, sum_mode="fused")
+    src_fn, src_map = compile_python(roots4g)
+    eval_map = leafmap_of(roots4g)
+    rows = torch.as_tensor([eval_map[u] for u, _ in sorted(src_map.items(),
+                                                         key=lambda kv: kv[1])], device=dev)
+    leaves = c4g.leaf_fn(*gv_samples(sizes4g, BATCH))
+    n_lv = sum(1 for lvl in c4g.lowered.levels if level_buckets(lvl))
+    level_fn.launches = 0
+    want = c4g.graph_fn(leaves)
+    torch.cuda.synchronize()
+    launched = level_fn.launches
+    got = src_fn(leaves[rows])
+    src_rel = ((got - want).abs().max(dim=1).values / want.abs().max(dim=1).values).max().item()
+    n_nodes = len(to_python_str(roots4g)[0].splitlines()) - 5
+    print(f"gv: source export of the optimized sigma 4 roots (compile_python, torch, {n_nodes} "
+          f"assignments) on the card in {got.dtype}, batch {BATCH}, vs the evaluator's "
+          f"{launched} level launches in float64 on the same leaves: worst per-root "
+          f"max|d|/max|ref| {src_rel:.3e} (limit {EXPORT_RTOL:g})", flush=True)
+    if (got.device.type != "cuda" or got.dtype != torch.float64 or launched != n_lv
+            or not src_rel <= EXPORT_RTOL):
+        fail(f"gv source export: {got.dtype} on {got.device}, {launched} launches, {src_rel:.3e}")
+    del c4g, leaves, want, got, roots4g
+
+    c = compiled["fused"]
+    mc_kw = dict(n_loop=para.totalLoopNum, num_tau=para.totalTauNum, batch=BATCH,
+                 n_roots=len(c.lowered.root_slots), device=dev, dtype=torch.float32, beta=BETA)
+
+    def one_pass():
+        mc_run(c.fn, iters=1, seed=SEED, **mc_kw)
+
+    pass_q = queued_ms(one_pass)
+    phases_ms = sum(v[0] for v in prof["phase_op"].values()) / 1e3
+    graph_ms = prof["phase_op"].get("graph", [0.0])[0] / 1e3
+    print(f"gv profile: profile_pass 4 {BATCH} 20 --levels in a fresh process ({prof_s:.1f} s, "
+          f"beside the read of the order-6 tables): its "
+          f"phases' device time {phases_ms:.4f} ms a pass ({phases_ms / pass_q:.3f} of "
+          f"the pass's busy time {pass_q:.4f} ms by queued_ms here; limit {PROFILE_COVER}), "
+          f"graph {graph_ms:.4f} ms, {prof['level_kernels_in_graph']:.1f} level kernels a pass "
+          f"inside level scopes (expected {launches['fused']}), "
+          f"{prof['unattributed_ops']:.1f} device ops a pass without a launching call  [{smi}]",
+          flush=True)
+    if not phases_ms >= PROFILE_COVER * pass_q:
+        fail(f"profile_pass: phases hold {phases_ms:.4f} ms of a {pass_q:.4f} ms pass: the trace "
+             f"lost kernels")
+    if prof["level_kernels_in_graph"] != launches["fused"]:
+        fail(f"profile_pass: {prof['level_kernels_in_graph']} level kernels a pass attributed to "
+             f"level scopes, expected {launches['fused']}")
+    # what the scopes cost with no profiler running: the same pass with
+    # scope() and with a bare null context in its place, in turns
+    scope_fns = {m: m.scope for m in (mc_mod, evaluator_mod, leaf_eval_mod)}
+    bare = contextlib.nullcontext()
+    walls = {"scope()": [], "bare": []}
+    for key in ("scope()", "bare", "bare", "scope()"):
+        for m_, f_ in scope_fns.items():
+            m_.scope = f_ if key == "scope()" else (lambda name: bare)
+        walls[key].append(wall_ms(one_pass, n=50))
+    for m_, f_ in scope_fns.items():
+        m_.scope = f_
+    walls = {k: float(np.mean(v)) for k, v in walls.items()}
+    print(f"gv profile: fused order-4 Gamma4 MC pass, batch {BATCH} f32, no profiler running, "
+          f"wall a pass: {walls['scope()']:.4f} ms with the scopes' code, {walls['bare']:.4f} ms "
+          f"with scope() replaced by a bare null context (in turns); the mc: line's "
+          f"{times['fused']['mc'][BATCH]['wall_ms']:.4f} ms and the time: line's graph phase "
+          f"{times['fused']['graph_wall_ms']:.4f} ms; profile_pass untraced "
+          f"{prof['wall_ms_per_pass']:.4f} ms, traced {prof['traced_wall_ms_per_pass']:.4f} ms"
+          f"  [{smi}]", flush=True)
+    gv_report = {"sigma6": gv6, "profile": {
+        "phases_device_ms": phases_ms, "pass_busy_ms": pass_q, "graph_ms": graph_ms,
+        "phase_op_us": prof["phase_op"], "phase_host_us": prof["phase_host"],
+        "leaf_host_us": prof["leaf_host"], "wall_ms": walls}}
+    phase("gv")
 
     # -- 6. storage x accumulation pairs of the bucket kernel
     def rounding_excess(got, exact, size, storage, acc):
@@ -1797,7 +2097,7 @@ def main() -> None:
                      "bucket_by_bucket_ms": bucketed["bucket_ms"]},
         "sharded": sharded_report,
         "hubbard": {str(order): h for order, h in hubbard.items()},
-        "config4": config4}] + [{
+        "config4": config4, "gv_sigma6": gv_report["sigma6"]}] + [{
             "name": f"probe_{name}", "route": "cuda",
             "source": "feynmandiagram_tpu_torch/csrc/row_probes.cu",
             "replaces": f"benchmarks/probe_mosaic_caps.py:{PROBE_LINE[name]}",

@@ -3,14 +3,26 @@
 Table resolution order:
 1. the path set via ``gv.set_table_path`` / ``FDTPU_GV_TABLES``
 2. the package-bundled ``tables/`` directory (self-generated)
+
+The bundled ``groups_vertex4`` tables are plain files.  The other five
+directories ship packed in ``tables/groups.tar.xz`` (0.15 MB for 26 MB of
+text) and are unpacked, byte for byte, into ``tables/`` at first use.
 """
 from __future__ import annotations
 
 import os
+import shutil
+import tarfile
+import tempfile
 from typing import List, Optional
 
 from ..common import Alli, Filter, NoHartree, PHEr, PHr, PPr
 from .readfile import read_diagrams, read_diagrams_feynman, read_vertex4_diagrams
+
+_BUNDLED = os.path.join(os.path.dirname(__file__), "tables")
+_ARCHIVE = os.path.join(_BUNDLED, "groups.tar.xz")
+PACKED_GROUPS = ("groups_charge", "groups_free_energy", "groups_green", "groups_sigma",
+                 "groups_spin")
 
 _GROUP_DIR = {
     "spinPolar": ("groups_spin", "Polar"),
@@ -21,17 +33,43 @@ _GROUP_DIR = {
 }
 
 
+def unpack_bundled_tables() -> str:
+    """Unpack each directory of ``PACKED_GROUPS`` that ``tables/`` lacks
+    from the bundled archive, and return the ``tables/`` directory.  Each
+    directory is unpacked beside its place and renamed into it, so a
+    process never reads a half-written directory; where processes race,
+    the first rename wins."""
+    missing = [d for d in PACKED_GROUPS if not os.path.isdir(os.path.join(_BUNDLED, d))]
+    if not missing:
+        return _BUNDLED
+    tmp = tempfile.mkdtemp(prefix=".unpack-", dir=_BUNDLED)
+    try:
+        with tarfile.open(_ARCHIVE) as tar:
+            tar.extractall(tmp, members=[m for m in tar.getmembers()
+                                         if m.name.split("/")[0] in missing], filter="data")
+        for d in missing:
+            try:
+                os.rename(os.path.join(tmp, d), os.path.join(_BUNDLED, d))
+            except OSError:
+                if not os.path.isdir(os.path.join(_BUNDLED, d)):
+                    raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return _BUNDLED
+
+
 def _table_file(diag_type: str, order: int, v_order: int, g_order: int,
                 vertex4_irreducible: bool = False) -> str:
     from . import _TABLE_PATH
     candidates = []
     if _TABLE_PATH:
         candidates.append(_TABLE_PATH)
-    candidates.append(os.path.join(os.path.dirname(__file__), "tables"))
+    candidates.append(_BUNDLED)
     if diag_type in ("vertex4", "vertex4I"):
         sub, prefix = "groups_vertex4", ("Vertex4I" if vertex4_irreducible else "Vertex4")
     else:
         sub, prefix = _GROUP_DIR[diag_type]
+        unpack_bundled_tables()
     fname = f"{prefix}{order}_{v_order}_{g_order}.diag"
     for base in candidates:
         path = os.path.join(base, sub, fname)
@@ -39,7 +77,8 @@ def _table_file(diag_type: str, order: int, v_order: int, g_order: int,
             return path
     raise FileNotFoundError(
         f"GV table {sub}/{fname} not found under {candidates}; set "
-        "FDTPU_GV_TABLES or generate tables with frontends.gv.generator")
+        "FDTPU_GV_TABLES or generate tables with "
+        "python -m feynmandiagram_tpu_torch.frontends.gv.generator")
 
 
 def diagsGV(diag_type: str, order: int, g_order: Optional[int] = None,

@@ -5,6 +5,8 @@ Port of ``benchmarks/_mc_bench.py::mc_samples_per_s``: each pass samples
 seeded ``torch.Generator``, evaluates the roots and accumulates their sum
 over the batch.  One warm-up run of ``iters`` passes, then the median
 wall-clock time of ``reps`` runs, each ended by a device synchronisation.
+The sampling runs in the profiler scope ``prng`` and the sum in ``accum``
+(``utils.profiling.scope``).
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ import time
 from typing import Callable
 
 import torch
+
+from .utils.profiling import scope
 
 
 def _sync(device: torch.device) -> None:
@@ -28,9 +32,12 @@ def mc_run(eval_fn: Callable, *, n_loop: int, num_tau: int, batch: int,
     gen.manual_seed(seed)
     acc = torch.zeros(n_roots, dtype=dtype, device=device)
     for _ in range(iters):
-        vk = torch.randn((3, n_loop, batch), generator=gen, dtype=dtype, device=device)
-        vt = torch.rand((num_tau, batch), generator=gen, dtype=dtype, device=device) * beta
-        acc += eval_fn(vk, vt).sum(dim=1)
+        with scope("prng"):
+            vk = torch.randn((3, n_loop, batch), generator=gen, dtype=dtype, device=device)
+            vt = torch.rand((num_tau, batch), generator=gen, dtype=dtype, device=device) * beta
+        roots = eval_fn(vk, vt)
+        with scope("accum"):
+            acc += roots.sum(dim=1)
     return acc
 
 

@@ -11,6 +11,13 @@ products, the powers.
   of the gather-reduce kernel (``level_gather_reduce``)
 - ``ProdPlan`` / ``PowerPlan``: plain PyTorch (XLA ops in the reference)
 
+Each level runs in a profiler scope ``gL{NN}``, and within it the CSR sum
+in ``csr``, the level's one bucket launch in ``fb{n}`` (``sb{n}`` when it
+holds only sum buckets; ``n`` buckets), each product in ``prod{arity}``
+and each power in ``pow{n}``: the JAX package's ``jax.named_scope`` names,
+read by ``benchmarks/profile_pass.py``.  A scope is entered only while a
+profiler runs (``utils.profiling.scope``).
+
 JAX's evaluator was functional (``dynamic_update_slice`` on an immutable
 buffer); this one writes each plan's rows of ``w`` in place.  That is safe
 because no plan of a level reads a row that a plan of that level writes:
@@ -30,6 +37,7 @@ import torch
 
 from .lowering import LoweredGraph, lower
 from .dtypes import default_device, default_dtype
+from ..utils.profiling import scope
 from .kernels import (LevelTables, cuda_type_codes, level_gather_reduce,
                       level_gather_reduce_plain, pack_level)
 
@@ -38,8 +46,10 @@ from .kernels import (LevelTables, cuda_type_codes, level_gather_reduce,
 class _Level:
     csr: Optional[tuple]     # (start, count, src, fac, seg)
     tables: Optional[LevelTables]   # sum buckets, then fused buckets, packed
-    prods: List[tuple]       # (start, count, idx [arity, count], factor [count])
-    pows: List[tuple]        # (n, start, count, src, factor)
+    prods: List[tuple]       # (start, count, idx [arity, count], factor [count], scope)
+    pows: List[tuple]        # (n, start, count, src, factor, scope)
+    scope: str               # the level's profiler scope, and its bucket launch's
+    bucket_scope: str
 
 
 def level_buckets(lvl) -> list:
@@ -99,16 +109,19 @@ def _upload(lowered: LoweredGraph, device, fac_dtype) -> List[_Level]:
         return torch.as_tensor(np.ascontiguousarray(a), device=device).to(fac_dtype)
 
     levels = []
-    for lvl in lowered.levels:
+    for li, lvl in enumerate(lowered.levels):
         csr = None
         if lvl.sums is not None:
             s = lvl.sums
             csr = (s.start, s.count, i64(s.edge_src), f(s.edge_factor), i64(s.edge_seg))
         buckets = level_buckets(lvl)
         tables = pack_level(buckets, device, fac_dtype) if buckets else None
-        prods = [(p.start, p.count, i64(p.idx), f(p.factor)) for p in lvl.prods]
-        pows = [(pw.n, pw.start, pw.count, i64(pw.src), f(pw.factor)) for pw in lvl.pows]
-        levels.append(_Level(csr, tables, prods, pows))
+        prods = [(p.start, p.count, i64(p.idx), f(p.factor), f"prod{p.arity}")
+                 for p in lvl.prods]
+        pows = [(pw.n, pw.start, pw.count, i64(pw.src), f(pw.factor), f"pow{pw.n}")
+                for pw in lvl.pows]
+        levels.append(_Level(csr, tables, prods, pows, f"gL{li:02d}",
+                             f"{'fb' if lvl.fused else 'sb'}{len(buckets)}"))
     return levels
 
 
@@ -125,23 +138,28 @@ def _eval_levels(levels: List[_Level], w: torch.Tensor, acc_dtype=None,
     a = acc_dtype or w.dtype
     level_op = level_gather_reduce if kernel else level_gather_reduce_plain
     for lvl in levels:
-        if lvl.csr is not None:
-            start, count, src, fac, seg = lvl.csr
-            contrib = w[src].to(a) * fac[:, None]
-            block = torch.zeros((count, w.shape[1]), dtype=a, device=w.device)
-            block.index_add_(0, seg, contrib)
-            w[start:start + count] = block.to(w.dtype)
-        if lvl.tables is not None:
-            level_op(w, lvl.tables, compensated=compensated, acc_dtype=acc_dtype,
-                     chunk_rows=chunk_rows)
-        for start, count, idx, factor in lvl.prods:
-            block = w[idx[0]].to(a)
-            for k in range(1, idx.shape[0]):
-                block = block * w[idx[k]].to(a)
-            w[start:start + count] = (block * factor[:, None]).to(w.dtype)
-        for n, start, count, src, factor in lvl.pows:
-            block = torch.pow(w[src].to(a), n) * factor[:, None]
-            w[start:start + count] = block.to(w.dtype)
+        with scope(lvl.scope):
+            if lvl.csr is not None:
+                with scope("csr"):
+                    start, count, src, fac, seg = lvl.csr
+                    contrib = w[src].to(a) * fac[:, None]
+                    block = torch.zeros((count, w.shape[1]), dtype=a, device=w.device)
+                    block.index_add_(0, seg, contrib)
+                    w[start:start + count] = block.to(w.dtype)
+            if lvl.tables is not None:
+                with scope(lvl.bucket_scope):
+                    level_op(w, lvl.tables, compensated=compensated, acc_dtype=acc_dtype,
+                             chunk_rows=chunk_rows)
+            for start, count, idx, factor, name in lvl.prods:
+                with scope(name):
+                    block = w[idx[0]].to(a)
+                    for k in range(1, idx.shape[0]):
+                        block = block * w[idx[k]].to(a)
+                    w[start:start + count] = (block * factor[:, None]).to(w.dtype)
+            for n, start, count, src, factor, name in lvl.pows:
+                with scope(name):
+                    block = torch.pow(w[src].to(a), n) * factor[:, None]
+                    w[start:start + count] = block.to(w.dtype)
     return w
 
 

@@ -10,7 +10,10 @@ runs, per call:
 2. one vectorized physics call per (leaf type, derivative order) group,
    scattered into a ``[num_leaves, batch]`` buffer initialised to ones.
 
-The group index tables are built and uploaded to the device once.
+The group index tables are built and uploaded to the device once.  The
+LoopPool step runs in the profiler scope ``loops`` and each group in
+``leafG{order}`` / ``leafV{order}``, the JAX package's scope names
+(``utils.profiling.scope``: entered only while a profiler runs).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from ..frontends import BareGreenId, BareInteractionId
 from ..models.free_fermion import green_derive_tower
 from ..models.yukawa import interaction_derive
 from .dtypes import default_device, default_dtype
+from ..utils.profiling import scope
 
 
 @dataclass
@@ -114,8 +118,8 @@ def make_leaf_evaluator(tables: LeafTables, *, beta: float, kF: float, lam: floa
     def dev(a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
-    # (type, order, leaf rows, basis rows, tau_in rows, tau_out rows); tau
-    # indices in the tables are 1-based
+    # (type, order, leaf rows, basis rows, tau_in rows, tau_out rows, scope);
+    # tau indices in the tables are 1-based
     groups = []
     for t in (1, 2):
         mask = tables.leaf_type == t
@@ -123,25 +127,28 @@ def make_leaf_evaluator(tables: LeafTables, *, beta: float, kF: float, lam: floa
         for o in sorted(set(orders[mask].tolist())):
             idx = np.where(mask & (orders == o))[0]
             groups.append((t, int(o), dev(idx), dev(tables.loop_idx[idx]),
-                           dev(tables.tau_in[idx] - 1), dev(tables.tau_out[idx] - 1)))
+                           dev(tables.tau_in[idx] - 1), dev(tables.tau_out[idx] - 1),
+                           f"leaf{'G' if t == 1 else 'V'}{o}"))
 
     def evaluate(varK, varT) -> torch.Tensor:
         varK = torch.as_tensor(varK, dtype=dtype, device=device)
         varT = torch.as_tensor(varT, dtype=dtype, device=device)
         batch = varK.shape[-1]
         # LoopPool.update as one batched matrix product (pool.jl:69-76)
-        loops = torch.einsum("nl,dlb->dnb", basis, varK)   # [dim, n_basis, batch]
-        q2 = torch.sum(loops * loops, dim=0)                # [n_basis, batch]
+        with scope("loops"):
+            loops = torch.einsum("nl,dlb->dnb", basis, varK)   # [dim, n_basis, batch]
+            q2 = torch.sum(loops * loops, dim=0)                # [n_basis, batch]
         out = torch.ones((tables.num_leaves, batch), dtype=dtype, device=device)
-        for t, order, gidx, lidx, t_in, t_out in groups:
-            q2_g = q2[lidx]
-            if t == 1:
-                tau = varT[t_out] - varT[t_in]
-                vals = green_derive_tower(tau, q2_g - kF ** 2, beta, order)
-            else:
-                vals = interaction_derive(q2_g, lam, order,
-                                          convention=interaction_convention)
-            out[gidx] = vals.to(dtype)
+        for t, order, gidx, lidx, t_in, t_out, name in groups:
+            with scope(name):
+                q2_g = q2[lidx]
+                if t == 1:
+                    tau = varT[t_out] - varT[t_in]
+                    vals = green_derive_tower(tau, q2_g - kF ** 2, beta, order)
+                else:
+                    vals = interaction_derive(q2_g, lam, order,
+                                              convention=interaction_convention)
+                out[gidx] = vals.to(dtype)
         return out
 
     return evaluate

@@ -1,6 +1,3 @@
-"""Utilities of the port: multi-process start-up.
-
-The JAX package's ``trace`` and ``lowered_cost`` (``utils/profiling.py``)
-are not ported yet.
-"""
+"""Utilities of the port: profiling hooks, multi-process start-up, cost metrics."""
+from .profiling import trace, lowered_cost
 from .distributed import initialize_distributed

@@ -14,7 +14,9 @@ timeout.
 - the graph-sharded MC step with its graph axis over the two processes and
   a local batch axis, against the same mesh held locally: bit for bit (the
   means are gathered and added in rank order whichever process holds a
-  rank).
+  rank);
+- ``graft_entry.dryrun_multichip(4)``, the first axis of each mesh over the
+  two processes.
 """
 import os
 import subprocess
@@ -107,6 +109,12 @@ assert torch.equal(means, expected), (means - expected).abs().max()
 """
 
 
+_DRYRUN = """
+from feynmandiagram_tpu_torch.graft_entry import dryrun_multichip
+dryrun_multichip(4, device="cpu")
+"""
+
+
 def _run_pair(body, tmp_path):
     """Run ``body`` in two processes of one gloo group; each must print its
     ok line within CHILD_TIMEOUT seconds, or both are killed."""
@@ -140,6 +148,12 @@ def test_two_process_graph_sharded_evaluator(tmp_path):
 
 def test_two_process_graph_sharded_mc_step(tmp_path):
     _run_pair(_MC_STEP, tmp_path)
+
+
+def test_two_process_dryrun_multichip(tmp_path):
+    """``graft_entry.dryrun_multichip`` with the first axis of each mesh
+    over the two processes."""
+    _run_pair(_DRYRUN, tmp_path)
 
 
 def test_initialize_distributed_without_configuration_does_nothing(monkeypatch):

@@ -209,6 +209,10 @@ def test_port_imports_nothing_of_the_jax_package():
     for root, _, names in os.walk(os.path.join(REPO, PORT)):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 40
+    for new in ("graft_entry.py", "utils/profiling.py", "backends/source.py",
+                "backends/to_dot.py", "benchmarks/profile_pass.py",
+                "frontends/gv/generator/tables.py", "frontends/gv/generator/__main__.py"):
+        assert os.path.join(REPO, PORT, new) in files, new
     for path in files:
         with open(path) as f:
             hit = pattern.search(f.read())
