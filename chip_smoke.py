@@ -124,9 +124,34 @@ output line or more each:
    kernel on three clocks, and every probe's device time over it;
 9. ``benchmarks.probe_gather.run()``: the streaming roofline and the
    gather strategies at the JAX script's shapes, the bucket kernel among
-   them.
+   them;
+10. Gamma4 at orders 3, 5 and 6 (``gamma4`` lines), fused and bucketed,
+   float32: order 3 generated and lowered here, orders 5 and 6 through
+   ``benchmarks/gamma4_orders.py`` in child processes started after the
+   build, which generate, optimize and ``export_artifact`` them on the host
+   beside phases 3-9 (``gamma4 host:`` lines, the leaf tables' seconds
+   among them), then ``load_artifact`` -> ``make_leaf_evaluator`` +
+   ``make_evaluator`` here.  For each lowering: its counts against the CPU
+   lowering's (GAMMA4), the pass against the float64 plain path (batch
+   4096, 512 at order 6) and, as a control, the same pass on leaves computed
+   in float32 arithmetic, as the JAX package computes them (the leaf phase
+   computes in float64 and rounds once), every level against its plain
+   version, the level launches beside their bound and, bucketed, beside ``torch.sparse.mm``,
+   the Monte-Carlo lines, and from order 5 on where a pass's device time
+   goes (leaf phase, zero-fill of w, level launches, plain ProdPlans).  The
+   scripts ``scaling`` (order 3, local meshes of 1, 2 and 4 ranks),
+   ``scan_merge`` and ``probe_split`` (order 4) and ``probe_structure`` (the
+   order-5 fused lowering); config 5 at its own order 5
+   (``examples/config5_serving.serve`` on the 4 x 2 mesh, bit for bit with
+   the unsharded evaluator) and ``certify_sharded`` at order 5 on 8 graph
+   ranks; then four passes whose weight buffer holds more than 2^31
+   elements (BIG_PASSES), each held bit for bit against three windows of
+   WINDOW columns of the same leaf values run alone.  A root outside
+   SLICE_TOL prints ``MISS:`` with its error under Kahan sums, float64
+   accumulation and a float64 graph phase, and fails the run at the
+   phase's end, after a JSON line of the misses.
 
-Then one JSON line on the ten kernels, and the last line
+Then the run's seconds, one JSON line on the ten kernels, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, and so
 does a machine without CUDA: nothing runs on the CPU instead.  ``jax`` and
 the JAX package ``feynmandiagram_tpu`` are blocked from import: the port
@@ -139,6 +164,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+STARTED = time.perf_counter()
 SEED = 0
 BATCH = 4096
 CHECK_BATCH = 256
@@ -177,6 +203,28 @@ PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12}   # same sheet, dense
 # busy time the profiler's phases must hold
 GV_SIGMA6 = {"fused": (27792, 133097, 5, 21), "bucketed": (43440, 148112, 6, 8)}
 EXPORT_RTOL = 1e-12
+# the gamma4 phase: each Gamma4 lowering's slots, edges, levels, buckets
+# and ProdPlans, then its roots and leaves, as the CPU lowers it; the batch
+# of each order's float32-against-float64 check; the artifacts each host
+# child builds; the batches of the Monte-Carlo lines; the passes whose
+# weight buffer holds more than 2^31 elements, held bit for bit against
+# windows of WINDOW columns; how long the gamma4 phase waits for a child
+GAMMA4 = {(3, "fused"): ((1184, 5355, 10, 62, 0), (84, 180)),
+          (3, "bucketed"): ((2854, 6579, 12, 30, 18), (84, 179)),
+          (5, "fused"): ((44144, 272806, 16, 164, 0), (330, 3345)),
+          (5, "bucketed"): ((130132, 342953, 21, 95, 43), (330, 3344)),
+          (6, "fused"): ((229856, 1462003, 20, 211, 0), (546, 11768)),
+          (6, "bucketed"): ((685472, 1851880, 26, 128, 55), (546, 11767))}
+GAMMA4_CHECK_BATCH = {3: 4096, 5: 4096, 6: 512}
+GAMMA4_CHILDREN = {5: ("fused", "bucketed", "config5", "certify8"), 6: ("fused", "bucketed")}
+GAMMA4_MC = {(3, "fused"): (4096, 16384), (3, "bucketed"): (4096, 16384),
+             (5, "fused"): (4096, 16384), (5, "bucketed"): (4096, 16384),
+             (6, "fused"): (4096, 16384), (6, "bucketed"): (4096,)}
+BIG_PASSES = ((5, "fused", 65536), (5, "bucketed", 32768), (6, "fused", 16384),
+              (6, "bucketed", 4096))
+WINDOW = 512
+CHILD_TIMEOUT = 900
+MC_RUN_MS = 400.0       # the least length of a timed Monte-Carlo run, where passes are long
 PROFILE_COVER = 0.8
 RAGGED_BATCH = 4097     # no multiple of 4: rows lose their 16-byte alignment
 M = 2 ** 20
@@ -216,6 +264,8 @@ PROBE_LINE = {"dma8": 39, "dmagrp": 61, "vmemrow": 82, "vmem8": 100, "acc": 122,
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    print(f"chip_smoke: the run failed after {time.perf_counter() - STARTED:.1f} s",
+          file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -308,6 +358,41 @@ def main() -> None:
     print(f"build: bucket_gather_reduce, row_probes (nvcc) and graphcore (g++) built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     print(f"host: CSE and levelling of the lowering run on the {host_path}", flush=True)
+
+    # the Gamma4 orders 5 and 6 are generated, optimized and lowered on the
+    # host in child processes (benchmarks/gamma4_orders.py), which run beside
+    # the phases below and touch no CUDA; the gamma4 phase loads what they
+    # wrote.  Each child and what it forked is killed at exit
+    import atexit
+    import shutil
+    import signal
+    import subprocess
+    import tempfile
+    g4_dir = tempfile.mkdtemp(prefix="gamma4_")
+    child_cmd = ("import sys; sys.modules['jax'] = None; sys.modules['feynmandiagram_tpu'] = None; "
+                 "from feynmandiagram_tpu_torch.benchmarks.gamma4_orders import main; main()")
+    g4_children = {}
+    for order, artifacts in GAMMA4_CHILDREN.items():
+        log = open(os.path.join(g4_dir, f"o{order}.log"), "w")
+        g4_children[order] = (subprocess.Popen(
+            [sys.executable, "-c", child_cmd, str(order), g4_dir, "--artifacts",
+             ",".join(artifacts)], cwd=repo, stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=repo, CUDA_VISIBLE_DEVICES=""),
+            start_new_session=True), log, time.perf_counter())
+
+    def stop_children():
+        for proc, log, _ in g4_children.values():
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:     # the child and all it forked are gone
+                pass
+            proc.wait()
+            log.close()
+        shutil.rmtree(g4_dir, ignore_errors=True)
+
+    atexit.register(stop_children)
+    print(f"host: Gamma4 orders {', '.join(map(str, GAMMA4_CHILDREN))} started in child "
+          f"processes", flush=True)
     phase("card and build")
 
     # -- 3. kernel against plain version
@@ -461,14 +546,17 @@ def main() -> None:
 
     phase("level checks")
 
-    def check_slice(c, samples, label, names=None):
+    def check_slice(c, samples, label, names=None, diagnose=None, misses=None):
         """The float32 pass of c through the kernel against the port's plain
         path in float64 on the card, on each (varK, varT) of samples: a
         pass must launch the kernel once per level that holds buckets and
         never bucket by bucket, and each root's max|d|/max|ref| must be
-        within SLICE_TOL (names: each root's name in the failure).  Returns
-        the levels that hold buckets and, per batch, (each root's error,
-        max|d|/max|ref| over all roots)."""
+        within SLICE_TOL (names: each root's name in the failure;
+        diagnose(c, varK, varT, root, ref) runs on a miss and returns a dict
+        of what it found).  A miss fails the run here, or, given the list
+        misses, is added to it as a dict and fails the run at its end.
+        Returns the levels that hold buckets and, per batch, (each root's
+        error, max|d|/max|ref| over all roots)."""
         n_levels = sum(1 for lvl in c.lowered.levels if level_buckets(lvl))
         n_roots = len(c.lowered.root_slots)
         ref_leaf = make_leaf_evaluator(c.tables, beta=BETA, kF=KF, lam=LAM, device=dev,
@@ -493,8 +581,14 @@ def main() -> None:
             out[batch] = (rel, (d.max() / ref.abs().max()).item())
             k = int(np.argmax(rel))
             if not rel[k] <= SLICE_TOL:
-                fail(f"{label}, batch {batch}: per-root scale-relative error {rel[k]:.3e} > "
-                     f"{SLICE_TOL} at root {k} {'' if names is None else names[k]}")
+                found = {} if diagnose is None else diagnose(c, vk, vt, k, ref)
+                miss = (f"{label}, batch {batch}: per-root scale-relative error {rel[k]:.3e} > "
+                        f"{SLICE_TOL} at root {k} {'' if names is None else names[k]}")
+                if misses is None:
+                    fail(miss)
+                misses.append({"check": label, "batch": batch, "root": k,
+                               "max_rel_err": rel[k], "limit": SLICE_TOL, **found})
+                print(f"MISS: {miss}; the run goes on and fails at its end", flush=True)
         return n_levels, out
 
     # -- 4. the slice
@@ -648,7 +742,9 @@ def main() -> None:
         must be the levels that hold buckets, none bucket by bucket), the
         wall and the profiler's device busy time of one pass, the idle share
         1 - busy / wall, and the level launches' share of busy.  A busy time
-        above the wall is a faulty clock reading and fails."""
+        above the wall is a faulty clock reading and fails.  A run of
+        mc_samples_per_s is 100 passes, or as many as last MC_RUN_MS where a
+        pass is longer (at least 10)."""
         n_levels = sum(1 for lvl in c.lowered.levels if level_buckets(lvl))
         out = {}
         for batch in batches:
@@ -669,8 +765,10 @@ def main() -> None:
             busy = sum(by_kernel.values())
             level_busy = sum(t for k, t in by_kernel.items() if "gather_reduce_kernel" in k)
             wall = wall_ms(one, n=20)
-            sps = mc_samples_per_s(c.fn, iters=100, reps=3, **mc_kw)
-            print(f"{label} batch {batch} f32: {sps:.1f} samples/s, {n_levels} level launches "
+            iters = min(100, max(10, int(MC_RUN_MS / wall)))
+            sps = mc_samples_per_s(c.fn, iters=iters, reps=3, **mc_kw)
+            print(f"{label} batch {batch} f32: {sps:.1f} samples/s ({iters} passes a run), "
+                  f"{n_levels} level launches "
                   f"a pass; per pass wall {wall:.4f} ms, device busy {busy:.4f} ms (idle share "
                   f"{1 - busy / wall:.3f}), level launches {level_busy:.4f} ms "
                   f"({level_busy / busy:.3f} of busy)  [{smi}]", flush=True)
@@ -678,7 +776,7 @@ def main() -> None:
                 fail(f"{label} batch {batch}: device busy {busy:.4f} ms above the wall "
                      f"{wall:.4f} ms of the same pass: a faulty clock reading")
             out[batch] = {"samples_per_s": sps, "busy_ms": busy, "wall_ms": wall,
-                          "level_busy_ms": level_busy}
+                          "level_busy_ms": level_busy, "passes_a_run": iters}
         return out
 
     # -- 4a. scale-out: NCCL with one rank, the graph-sharded pass on a local mesh
@@ -774,7 +872,7 @@ def main() -> None:
                 fail(f"scale-out {mode}, batch {batch}: {rel:.3e} from the f64 plain path")
             sharded_runs[mode, batch] = (sh, leaves, single, n_launch)
         if mode == "fused":
-            fused_low, fused_tables, fused_single = low_s, tables_s, single
+            fused_low, fused_tables = low_s, tables_s
         del leaf64, plain64
 
     # the kernel against its plain version through src, every level of rank
@@ -824,45 +922,56 @@ def main() -> None:
               f"{s_}/{a_}{' Kahan' if k_ else ''} {e:.3e}" for (s_, a_, k_), e in
               src_err.items()), flush=True)
 
-    # the graph-sharded MC step of examples/config5_serving.py on a local 4 x 2
-    # mesh, against the unsharded evaluator on the same draws
-    level_fn.launches = kernel_fn.launches = 0
-    sh_means, sh_step, sh_mesh = config5_serving.serve(
-        fused_low, fused_tables, device=dev, batch_per_device=BATCH, iters=SHARD_MC_ITERS,
-        seed=SEED)
-    torch.cuda.synchronize()
-    mc_launch = level_fn.launches
-    n_batch = sh_mesh.shape["batch"]
-    leaf32 = make_leaf_evaluator(fused_tables, beta=BETA, kF=KF, lam=LAM, device=dev,
-                                 dtype=torch.float32)
-    n_tau = int(max(fused_tables.tau_in.max(), fused_tables.tau_out.max()))
-    per_rank, mc_dtype = [], sh_means.dtype
-    for b in range(n_batch):
-        acc = torch.zeros(len(fused_low.root_slots), dtype=mc_dtype, device=dev)
-        for i in range(SHARD_MC_ITERS):
-            g_ = torch.Generator(device=dev)
-            g_.manual_seed(rank_seed(SEED, b, i))
-            vk = torch.randn((3, para.totalLoopNum, BATCH), generator=g_, dtype=mc_dtype,
-                             device=dev)
-            vt = torch.rand((n_tau, BATCH), generator=g_, dtype=mc_dtype, device=dev) * BETA
-            acc = acc + fused_single(leaf32(vk, vt)).sum(dim=1)
-        per_rank.append(acc / (SHARD_MC_ITERS * BATCH))
-    mc_ref = per_rank[0]
-    for m in per_rank[1:]:
-        mc_ref = mc_ref + m
-    mc_ref = mc_ref / n_batch
-    mc_bitwise = torch.equal(sh_means, mc_ref)
-    mc_rel = ((sh_means.double() - mc_ref.double()).abs().max()
-              / mc_ref.double().abs().max()).item()
-    want_launch = n_batch * SHARD_MC_ITERS * N_GRAPH * SHARD_PLAN["fused"][1]
-    held = ("bit for bit" if mc_bitwise
-            else f"scale-relative {mc_rel:.3e} (limit {SHARD_MC_TOL:g}), not bit for bit")
-    print(f"scale-out: graph-sharded MC step on a local {sh_mesh.shape} mesh, batch {BATCH} a "
-          f"device, {SHARD_MC_ITERS} iterations: {mc_launch} level launches (expected "
-          f"{want_launch}); means vs the unsharded evaluator on the same draws: {held}",
-          flush=True)
-    if mc_launch != want_launch or not (mc_bitwise or mc_rel <= SHARD_MC_TOL):
-        fail(f"scale-out MC step: {mc_launch} launches, means {mc_rel:.3e} from the reference")
+    def serve_check(low_s, tables_s, label):
+        """The graph-sharded MC step of examples/config5_serving.py on a
+        local 4 x 2 mesh at BATCH a device, SHARD_MC_ITERS iterations, on
+        low_s: its level launches (one a level that holds buckets, a rank,
+        a batch rank and an iteration) and its means against the unsharded
+        evaluator on the same draws, bit for bit or within SHARD_MC_TOL.
+        Returns the step's planner stats and whether the means were bit for
+        bit."""
+        level_fn.launches = kernel_fn.launches = 0
+        sh_means, sh_step, sh_mesh = config5_serving.serve(
+            low_s, tables_s, device=dev, batch_per_device=BATCH, iters=SHARD_MC_ITERS,
+            seed=SEED)
+        torch.cuda.synchronize()
+        mc_launch = level_fn.launches
+        n_batch = sh_mesh.shape["batch"]
+        single_s = make_evaluator(low_s, device=dev, dtype=torch.float32)
+        leaf_s = make_leaf_evaluator(tables_s, beta=BETA, kF=KF, lam=LAM, device=dev,
+                                     dtype=torch.float32)
+        n_loop = tables_s.loop_basis.shape[1]
+        n_tau = int(max(tables_s.tau_in.max(), tables_s.tau_out.max()))
+        per_rank, mc_dtype = [], sh_means.dtype
+        for b in range(n_batch):
+            acc = torch.zeros(len(low_s.root_slots), dtype=mc_dtype, device=dev)
+            for i in range(SHARD_MC_ITERS):
+                g_ = torch.Generator(device=dev)
+                g_.manual_seed(rank_seed(SEED, b, i))
+                vk = torch.randn((3, n_loop, BATCH), generator=g_, dtype=mc_dtype, device=dev)
+                vt = torch.rand((n_tau, BATCH), generator=g_, dtype=mc_dtype, device=dev) * BETA
+                acc = acc + single_s(leaf_s(vk, vt)).sum(dim=1)
+            per_rank.append(acc / (SHARD_MC_ITERS * BATCH))
+        mc_ref = per_rank[0]
+        for m in per_rank[1:]:
+            mc_ref = mc_ref + m
+        mc_ref = mc_ref / n_batch
+        mc_bitwise = torch.equal(sh_means, mc_ref)
+        mc_rel = ((sh_means.double() - mc_ref.double()).abs().max()
+                  / mc_ref.double().abs().max()).item()
+        n_lvl = sum(1 for lvl in low_s.levels if level_buckets(lvl))
+        want_launch = n_batch * SHARD_MC_ITERS * sh_mesh.shape["graph"] * n_lvl
+        held = ("bit for bit" if mc_bitwise
+                else f"scale-relative {mc_rel:.3e} (limit {SHARD_MC_TOL:g}), not bit for bit")
+        print(f"{label}: graph-sharded MC step on a local {sh_mesh.shape} mesh, batch {BATCH} "
+              f"a device, {SHARD_MC_ITERS} iterations: {mc_launch} level launches (expected "
+              f"{want_launch}); means vs the unsharded evaluator on the same draws: {held}",
+              flush=True)
+        if mc_launch != want_launch or not (mc_bitwise or mc_rel <= SHARD_MC_TOL):
+            fail(f"{label} MC step: {mc_launch} launches, means {mc_rel:.3e} from the reference")
+        return sh_step.stats, mc_bitwise
+
+    _, mc_bitwise = serve_check(fused_low, fused_tables, "scale-out")
 
     # benchmarks/certify_sharded.py on the same roots
     try:
@@ -915,7 +1024,7 @@ def main() -> None:
           f"{len(sends)} halo gathers back to back {sh_halo:.4f} ms; the unsharded "
           f"pass on the same lowering: busy {un_busy:.4f} ms, wall {un_wall:.4f} ms  [{smi}]",
           flush=True)
-    del sharded_runs, sh, ev, ws, halos, launch_fns, leaves, single, fused_single
+    del sharded_runs, sh, ev, ws, halos, launch_fns, leaves, single
     torch.cuda.empty_cache()
 
     phase("scale-out")
@@ -2075,6 +2184,344 @@ def main() -> None:
 
     phase("gather probe")
 
+    # -- 10. Gamma4 at orders 3, 5 and 6, the JAX package's other orders
+    import dataclasses
+    from feynmandiagram_tpu_torch.backends.compile import CompiledEvaluator, load_artifact
+    from feynmandiagram_tpu_torch.benchmarks import gamma4_orders as g4
+    from feynmandiagram_tpu_torch.benchmarks import probe_split, probe_structure, scaling
+    from feynmandiagram_tpu_torch.benchmarks import scan_merge
+
+    def g4_counts(low):
+        """Slots, edges, levels, buckets and ProdPlans of low; its roots
+        and leaves."""
+        return ((low.num_slots, low.num_edges, len(low.levels),
+                 sum(len(lvl.fused) + len(lvl.sum_buckets) for lvl in low.levels),
+                 sum(len(lvl.prods) for lvl in low.levels)),
+                (len(low.root_slots), low.num_leaves))
+
+    def wait_child(order):
+        """Wait for the host child of order, print its lines; the paths of
+        its artifacts.  A child that failed fails the run."""
+        proc, log, started = g4_children[order]
+        try:
+            rc = proc.wait(timeout=max(CHILD_TIMEOUT - (time.perf_counter() - started), 1))
+        except subprocess.TimeoutExpired:
+            fail(f"gamma4: the order-{order} host child ran past {CHILD_TIMEOUT} s")
+        log.flush()
+        with open(log.name) as f:
+            lines = f.read().splitlines()
+        for line in lines[:-1]:
+            print(f"gamma4 host: {line}", flush=True)
+        if rc != 0 or not lines:
+            fail(f"gamma4: the order-{order} host child exited {rc}: {lines[-20:]}")
+        done = json.loads(lines[-1])
+        print(f"gamma4 host: order {order} artifacts {sorted(done['paths'])} written in "
+              f"{done['seconds']} s by the child; waited for here "
+              f"{time.perf_counter() - started:.1f} s after its start", flush=True)
+        return done["paths"]
+
+    def from_artifact(path):
+        """load_artifact -> make_leaf_evaluator + make_evaluator on the card,
+        float32: the route of orders that take minutes on the host."""
+        low, tabs = load_artifact(path)
+        leaf_fn = make_leaf_evaluator(tabs, beta=BETA, kF=KF, lam=LAM, device=dev,
+                                      dtype=torch.float32)
+        graph_fn = make_evaluator(low, device=dev, dtype=torch.float32)
+        return CompiledEvaluator(low, tabs, lambda vk, vt: graph_fn(leaf_fn(vk, vt)), leaf_fn,
+                                 graph_fn, tabs.loop_basis.shape[1])
+
+    def g4_diagnose(c, vk, vt, k, ref):
+        """Root k's error under Kahan sums and under float64 accumulation,
+        on the same float32 leaves; and with the graph phase in float64 on
+        those leaves, the leaf phase's part."""
+        leaves = c.leaf_fn(vk, vt)
+        errs = {}
+        for name, dtype, kw in (("compensated=True", torch.float32, {"compensated": True}),
+                                ("acc_dtype=torch.float64", torch.float32,
+                                 {"acc_dtype": torch.float64}),
+                                ("a float64 graph phase", torch.float64, {"kernel": False})):
+            got = make_evaluator(c.lowered, device=dev, dtype=dtype, **kw)(leaves)[k]
+            errs[name] = ((got.double() - ref[k]).abs().max() / ref[k].abs().max()).item()
+        print(f"gamma4: root {k} misses SLICE_TOL; its max|d|/max|ref| on the same float32 "
+              f"leaves " + ", ".join(f"under {name} {e:.3e}" for name, e in errs.items())
+              + f" (max|ref| {ref[k].abs().max().item():.4e}, median|ref| "
+              f"{ref[k].abs().median().item():.4e})", flush=True)
+        return errs
+
+    def leaf_control(label, c, vk, vt):
+        """The control of the leaf phase's float64 arithmetic: the same
+        float32 pass on leaves computed in float32 arithmetic, as the JAX
+        package computes them, against the float64 plain path; and those
+        leaves' relative error against the float64 leaves rounded once
+        (c's)."""
+        kw = dict(beta=BETA, kF=KF, lam=LAM, device=dev)
+        leaves = c.leaf_fn(vk, vt)
+        leaves32 = make_leaf_evaluator(c.tables, dtype=torch.float32,
+                                       compute_dtype=torch.float32, **kw)(vk, vt)
+        ref = make_evaluator(c.lowered, device=dev, dtype=torch.float64, kernel=False)(
+            make_leaf_evaluator(c.tables, dtype=torch.float64, **kw)(vk, vt))
+        got = c.graph_fn(leaves32)
+        rel = (got.double() - ref).abs().amax(dim=1) / ref.abs().amax(dim=1)
+        k = int(rel.argmax())
+        normal = leaves.abs() >= torch.finfo(torch.float32).tiny   # not flushed to 0 or subnormal
+        d = (leaves32.double() - leaves.double())[normal].abs() / leaves.double()[normal].abs()
+        sub = d[::-(-d.numel() // 2 ** 23)]
+        q = torch.quantile(sub, torch.tensor([0.5, 0.99], dtype=d.dtype, device=dev)).tolist()
+        found = {"max_rel_err": rel[k].item(), "root": k, "leaf_rel_err_median": q[0],
+                 "leaf_rel_err_p99": q[1], "leaf_rel_err_max": d.max().item()}
+        print(f"gamma4: {label}, control: the leaves computed in float32 arithmetic (as the "
+              f"JAX package computes them), not float64 rounded once, put root {k} at "
+              f"{rel[k].item():.3e} (limit {SLICE_TOL:g}); those leaves against the rounded "
+              f"ones, where these are normal ({d.numel()} of {leaves.numel()}): relative error "
+              f"median {q[0]:.3e}, 99th percentile {q[1]:.3e}, max "
+              f"{found['leaf_rel_err_max']:.3e}", flush=True)
+        del leaves, leaves32, ref, got, d, sub, normal
+        return found
+
+    def library_ms(low, w, tabs):
+        """torch.sparse.mm of each SumBucket's CSR matrix with w, each held
+        to the level launch's rows, then timed back to back."""
+        mats, k = sparse_buckets(low), 0
+        for lvl, tab in zip([lv for lv in low.levels if level_buckets(lv)], tabs):
+            wk = w.clone()
+            level_fn(wk, tab)
+            for _, _, start in level_buckets(lvl):
+                out = torch.sparse.mm(mats[k], w)
+                d = (out - wk[start:start + out.shape[0]]).abs().max().item()
+                if not d <= 1e-4 * out.abs().max().item():
+                    fail(f"gamma4: torch.sparse.mm differs from the level launch on the bucket "
+                         f"at row {start}: max|diff| {d:.3e}")
+                k += 1
+            del wk
+        return sum(queued_ms(lambda k=k: [torch.sparse.mm(m, w)
+                                          for m in mats[k:k + QUEUED_BUCKETS]])
+                   for k in range(0, len(mats), QUEUED_BUCKETS))
+
+    def busy_split(label, c, para_o, w, levels_ms, busy):
+        """Where the device time of a pass at BATCH goes: the leaf phase,
+        the zero-fill of w, the level launches (measured already) and the
+        plain ProdPlans and PowerPlans, each by queued_ms."""
+        vk = torch.randn((3, para_o.totalLoopNum, BATCH), generator=dev_gen, device=dev)
+        vt = torch.rand((para_o.totalTauNum, BATCH), generator=dev_gen, device=dev) * BETA
+        leaf_ms = queued_ms(lambda: c.leaf_fn(vk, vt))
+        zero_ms = queued_ms(lambda: torch.zeros(w.shape, dtype=w.dtype, device=dev))
+        plain_lv = [dataclasses.replace(lv, csr=None, tables=None)
+                    for lv in evaluator_mod._upload(c.lowered, dev, torch.float32)]
+        prod_ms = queued_ms(lambda: evaluator_mod._eval_levels(plain_lv, w))
+        parts = {"leaf_ms": leaf_ms, "zero_fill_ms": zero_ms, "levels_ms": levels_ms,
+                 "prods_ms": prod_ms}
+        print(f"gamma4 busy: {label} batch {BATCH} f32, device ms by queued_ms: leaf phase "
+              f"{leaf_ms:.4f}, zero-fill of w ({w.numel() * 4 / 1e9:.2f} GB) {zero_ms:.4f}, "
+              f"level launches {levels_ms:.4f}, plain ProdPlans {prod_ms:.4f}; sum "
+              f"{sum(parts.values()):.4f} against the pass's busy {busy:.4f} (profiler)  "
+              f"[{smi}]", flush=True)
+        return parts
+
+    def g4_lowering(order, mode, c):
+        """The checks and times of one lowering: counts, the f32 pass
+        against the f64 plain path, every level against its plain version,
+        the level launches beside their bound (bucketed: and beside
+        torch.sparse.mm), the Monte-Carlo lines and, from order 5 on, where
+        a pass's device time goes."""
+        label = f"order {order} {mode}"
+        low = c.lowered
+        counts = g4_counts(low)
+        para_o = g4.vertex4_para(order)
+        batch = GAMMA4_CHECK_BATCH[order]
+        vk = gen.standard_normal((3, para_o.totalLoopNum, batch))
+        vt = gen.random((para_o.totalTauNum, batch)) * BETA
+        n_levels, errs = check_slice(c, [(vk, vt)], f"gamma4 {label}", diagnose=g4_diagnose,
+                                     misses=g4_misses)
+        control = leaf_control(label, c, vk, vt)
+        rel = errs[batch][0]
+        k = int(np.argmax(rel))
+        print(f"gamma4: {label}: slots, edges, levels, buckets, ProdPlans {counts[0]}, roots and "
+              f"leaves {counts[1]} (the CPU lowering's {GAMMA4[order, mode]}); f32 kernel vs "
+              f"f64 plain on the card, batch {batch}: {n_levels} level launches a pass, worst "
+              f"per-root max|d|/max|ref| {rel[k]:.3e} at root {k} (limit {SLICE_TOL:g})",
+              flush=True)
+        if counts != GAMMA4[order, mode]:
+            fail(f"gamma4 {label}: {counts}, not the CPU lowering's {GAMMA4[order, mode]}")
+        lerr = {comp: check_levels(low, rand_w(low.num_slots, CHECK_BATCH, torch.float32),
+                                   torch.float32, None, comp,
+                                   f"gamma4 {label} batch {CHECK_BATCH} compensated={comp}")
+                for comp in (False, True)}
+        print(f"gamma4: level launch = plain on every level of the {label} lowering, f32, batch "
+              f"{CHECK_BATCH}: Kahan max|diff| {lerr[True]:.3e} (must be 0), plain sums "
+              f"max|diff| {lerr[False]:.3e}", flush=True)
+        w = rand_w(low.num_slots, BATCH, torch.float32)
+        tabs = tables_of(low, torch.float32)
+        ld, per_level, bounds = level_pass_ms(low, w, tabs)
+        plain = sum(queued_ms(lambda t=t: level_plain(w, t)) for t in tabs)
+        bound = sum(b["ms"] for b in bounds)
+        lib = library_ms(low, w, tabs) if mode == "bucketed" else None
+        lib_line = ("" if lib is None else f"; torch.sparse.mm of each SumBucket's CSR matrix "
+                    f"with w, back to back, {lib:.4f} ms")
+        print(f"gamma4 time: {label} batch {BATCH} f32, the buckets of a pass, device, back to "
+              f"back: {len(tabs)} level launches {ld:.4f} ms ({bound / ld:.3f} of the bound "
+              f"{bound:.4f} ms = distinct rows per level + written rows over 3.35 TB/s); "
+              f"plain, level by level, {plain:.4f} ms{lib_line}  [{smi}]", flush=True)
+        levels_line(f"gamma4 levels: {label} batch {BATCH} f32", per_level, bounds)
+        rep = {"launches_per_pass": n_levels, "max_rel_err": max(rel),
+               "max_abs_err": lerr[False], "max_abs_err_kahan": lerr[True], "ms": ld,
+               "plain_ms": plain, "bound_ms": bound,
+               "bound_by": max(bounds, key=lambda b: b["ms"])["by"], "library_ms": lib,
+               "share_of_bound": bound / ld, "batch": BATCH,
+               "level_shares": [b["ms"] / t for t, b in zip(per_level, bounds)],
+               "leaf_control": control}
+        mc = mc_lines(c, para_o, GAMMA4_MC[order, mode], f"gamma4 mc: {label}")
+        rep.update({f"mc_{b}": m for b, m in mc.items()})
+        if order >= 5:
+            rep["split"] = busy_split(label, c, para_o, w, ld, mc[BATCH]["busy_ms"])
+        del w, tabs
+        torch.cuda.empty_cache()
+        return rep
+
+    def big_pass(order, mode, c, batch):
+        """One graph pass of c at batch, whose buffer passes 2^31 elements,
+        with return_all=True, against three windows of WINDOW columns of the
+        same leaf values: every row bit for bit (g4.differing_rows)."""
+        low = c.lowered
+        graph_all = make_evaluator(low, device=dev, dtype=torch.float32, return_all=True)
+        para_o = g4.vertex4_para(order)
+        vk = torch.randn((3, para_o.totalLoopNum, batch), generator=dev_gen, device=dev)
+        vt = torch.rand((para_o.totalTauNum, batch), generator=dev_gen, device=dev) * BETA
+        leaves = c.leaf_fn(vk, vt)
+        del vk, vt
+        torch.cuda.synchronize()
+        level_fn.launches = 0
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        w = graph_all(leaves)
+        e1.record()
+        torch.cuda.synchronize()
+        full_ms, n_launch = e0.elapsed_time(e1), level_fn.launches
+        finite = bool(torch.isfinite(w[torch.as_tensor(low.root_slots, device=dev)]).all())
+        diff = g4.differing_rows(graph_all, leaves, w, WINDOW)
+        n = w.numel()
+        print(f"gamma4 2^31: order {order} {mode}, batch {batch}: w {low.num_slots} x {batch} f32, "
+              f"{n} elements = {n / 2 ** 31:.3f} x 2^31 ({n * 4 / 1e9:.1f} GB), largest element "
+              f"offset {n - 1}, rows from {-(-2 ** 31 // batch)} on lie past element 2^31; "
+              f"full pass {full_ms:.2f} ms with {n_launch} level launches, roots finite "
+              f"{finite}; rows differing from the full pass in the first, a middle and the "
+              f"last {WINDOW} columns run alone: {diff}  [{smi}]", flush=True)
+        if n < 2 ** 31 or any(diff) or not finite:
+            fail(f"gamma4 2^31 order {order} {mode}: {n} elements, windows differ in {diff} rows, "
+                 f"roots finite {finite}")
+        del w, leaves, graph_all
+        torch.cuda.empty_cache()
+        return {"batch": batch, "elements": n, "full_pass_ms": full_ms,
+                "differing_rows": diff}
+
+    # a root of orders 3-6 outside SLICE_TOL fails the run at its end, after
+    # the phase's other checks and times
+    g4_report, g4_big, g4_misses = {3: {}, 5: {}, 6: {}}, [], []
+
+    # order 3, generated and lowered here
+    t0 = time.perf_counter()
+    roots3, para3 = g4.vertex4_roots(3)
+    c3 = {mode: compile_evaluator(roots3, max_loop_num=para3.totalLoopNum, beta=BETA, kF=KF,
+                                  lam=LAM, device=dev, dtype=torch.float32, sum_mode=mode)
+          for mode in ("fused", "bucketed")}
+    print(f"gamma4 host: order 3 generated, optimized and lowered both ways in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for mode, c in c3.items():
+        g4_report[3][mode] = g4_lowering(3, mode, c)
+    # scaling.py at order 3 on local meshes of 1, 2 and 4 ranks
+    pts = (scaling.sample_axis_points(c3["fused"], para3, (1, 2, 4), BATCH, 10, dev)
+           + scaling.graph_axis_points(roots3, (1, 2, 4), 1024, 10, dev))
+    for p in pts:
+        print(f"scaling: {json.dumps(p)}", flush=True)
+    for line in scaling.table(pts).splitlines():
+        print(f"scaling: {line}  [{smi}]", flush=True)
+    del c3, roots3
+    phase("gamma4: order 3")
+
+    # scan_merge.py and probe_split.py at order 4, on the main path's roots
+    for row in scan_merge.scan(roots, para, (0, 2000), (BATCH, 4 * BATCH), device=dev):
+        print(f"scan_merge: {json.dumps(row)}  [{smi}]", flush=True)
+        if row["threshold"] == 0 and row["buckets"] != len(buckets_of(compiled["fused"].lowered)):
+            fail(f"scan_merge: {row['buckets']} buckets at threshold 0, not the fused slice's")
+    for cse, cnt in probe_split.cse_counts(roots).items():
+        print(f"probe_split: order 4 bucketed, cse={cse}: {json.dumps(cnt)}", flush=True)
+    split = probe_split.split_ms(compiled["bucketed"], para, BATCH, dev)
+    traffic = probe_split.graph_traffic_bytes(compiled["bucketed"].lowered, BATCH)
+    print(f"probe_split: order 4 bucketed batch {BATCH} f32, device ms a call: leaf phase "
+          f"{split['leaf_ms']:.4f}, graph phase {split['graph_ms']:.4f}; graph-phase traffic "
+          f"{traffic / 1e9:.3f} GB -> {traffic / split['graph_ms'] / 1e6:.0f} GB/s  [{smi}]",
+          flush=True)
+    phase("gamma4: scan_merge and probe_split at order 4")
+
+    # order 5 from the child's artifacts
+    paths5 = wait_child(5)
+    c5 = {}
+    for mode in ("fused", "bucketed"):
+        t0 = time.perf_counter()
+        c5[mode] = from_artifact(paths5[mode])
+        print(f"gamma4 host: order 5 {mode} artifact loaded and its evaluators built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        g4_report[5][mode] = g4_lowering(5, mode, c5[mode])
+    # probe_structure.py on the order-5 fused lowering
+    st = probe_structure.structure(c5["fused"].lowered)
+    for line in probe_structure.report(st).splitlines():
+        print(f"probe_structure: order 5 fused: {line}", flush=True)
+    vk = torch.randn((3, c5["fused"].max_loop_num, BATCH), generator=dev_gen, device=dev)
+    vt = torch.rand((g4.vertex4_para(5).totalTauNum, BATCH), generator=dev_gen,
+                    device=dev) * BETA
+    pt = probe_structure.phase_ms(c5["fused"].leaf_fn, c5["fused"].graph_fn, c5["fused"].fn,
+                                  vk, vt)
+    print(f"probe_structure: order 5 fused batch {BATCH} f32: leaf {pt['leaf_ms']:.4f} ms, graph "
+          f"{pt['graph_ms']:.4f} ms, full {pt['full_ms']:.4f} ms -> "
+          f"{BATCH / pt['full_ms'] * 1e3:.0f} samples/s; graph-phase edges/s "
+          f"{st['edges'] * BATCH / pt['graph_ms'] / 1e6:.1f} G  [{smi}]", flush=True)
+    del vk, vt
+    # config 5 at its own order 5, and certify_sharded at 8 graph ranks
+    low_c5, tables_c5 = load_artifact(paths5["config5"])
+    stats_c5, c5_bitwise = serve_check(low_c5, tables_c5, "gamma4: config5 order 5")
+    print(f"gamma4: config5 order 5 plan, 4 graph ranks: full slots {stats_c5.full_slots}, slots "
+          f"a rank {stats_c5.local_slots}, halo {stats_c5.halo_bytes_per_sample()} B/sample f32, "
+          f"pad {stats_c5.halo_pad_overhead:.3f}, early {stats_c5.early_share:.3f}", flush=True)
+    low_c8, _ = load_artifact(paths5["certify8"])
+    try:
+        cert5 = certify_sharded.certify(5, 8, BATCH, dev, lowered=low_c8,
+                                        live_slots=c5["fused"].lowered.num_slots)
+    except RuntimeError as err:
+        fail(f"gamma4: certify_sharded at order 5: {err}")
+    print(f"gamma4: certify_sharded {json.dumps(cert5)}", flush=True)
+    g4_report[5]["config5"] = {
+        "full_slots": int(stats_c5.full_slots), "local_slots": int(stats_c5.local_slots),
+        "halo_bytes_per_sample": int(stats_c5.halo_bytes_per_sample()),
+        "pad": float(stats_c5.halo_pad_overhead), "early": float(stats_c5.early_share),
+        "mc_bit_for_bit": c5_bitwise, "certify8": cert5}
+    del low_c5, tables_c5, low_c8
+    torch.cuda.empty_cache()
+    phase("gamma4: order 5")
+
+    # order 6 from the child's artifacts
+    paths6 = wait_child(6)
+    c6 = {}
+    for mode in ("fused", "bucketed"):
+        t0 = time.perf_counter()
+        c6[mode] = from_artifact(paths6[mode])
+        print(f"gamma4 host: order 6 {mode} artifact loaded and its evaluators built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        g4_report[6][mode] = g4_lowering(6, mode, c6[mode])
+    phase("gamma4: order 6")
+
+    # past 2^31 elements of w, bit for bit against narrow windows
+    for order, mode, batch in BIG_PASSES:
+        g4_big.append({"order": order, "mode": mode,
+                       **big_pass(order, mode, (c5 if order == 5 else c6)[mode], batch)})
+    del c5, c6
+    torch.cuda.empty_cache()
+    phase("gamma4: past 2^31")
+    if g4_misses:
+        print(json.dumps({"gamma4_slice_misses": g4_misses}), flush=True)
+        fail("gamma4: the float32 pass left SLICE_TOL of the float64 plain path: "
+             + "; ".join(f"{m['check']}, batch {m['batch']}, root {m['root']}: "
+                         f"{m['max_rel_err']:.3e}" for m in g4_misses))
+
+
     fused, bucketed = times["fused"], times["bucketed"]
     # onehot's other design, timed in turns with the kernel of record
     variant = onehot_designs[1]
@@ -2097,7 +2544,9 @@ def main() -> None:
                      "bucket_by_bucket_ms": bucketed["bucket_ms"]},
         "sharded": sharded_report,
         "hubbard": {str(order): h for order, h in hubbard.items()},
-        "config4": config4, "gv_sigma6": gv_report["sigma6"]}] + [{
+        "config4": config4, "gv_sigma6": gv_report["sigma6"],
+        "gamma4": {str(order): rep for order, rep in g4_report.items()},
+        "gamma4_past_2_31": g4_big}] + [{
             "name": f"probe_{name}", "route": "cuda",
             "source": "feynmandiagram_tpu_torch/csrc/row_probes.cu",
             "replaces": f"benchmarks/probe_mosaic_caps.py:{PROBE_LINE[name]}",
@@ -2108,6 +2557,7 @@ def main() -> None:
             "plain_device_ms": probe_dev[name][1], "library_device_ms": probe_dev[name][2],
             "floor_device_ms": floor_dev, **extra.get(name, {})}
             for name in PROBE_LINE]}
+    print(f"chip_smoke: the whole run took {time.perf_counter() - STARTED:.1f} s", flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

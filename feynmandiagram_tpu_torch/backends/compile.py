@@ -12,6 +12,7 @@ package evaluates in the other.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence
 
@@ -160,13 +161,17 @@ def save_lowered(path: str, lowered: LoweredGraph,
 
 
 def export_artifact(path: str, roots: Sequence[Graph], *, max_loop_num: int,
-                    sum_mode: str = "fused", **lower_kwargs) -> None:
+                    sum_mode: str = "fused", **lower_kwargs) -> Dict[str, float]:
     """Lower ``roots`` (fused mode by default) and serialize the flat IR and
-    leaf tables to one .npz artifact."""
-    leafmap = leafmap_of(roots)
-    lowered = lower(roots, leafmap, sum_mode=sum_mode, **lower_kwargs)
+    leaf tables to one .npz artifact.  Returns the seconds that each step
+    took: ``lower_s``, ``tables_s`` and ``save_s``."""
+    t0 = time.perf_counter()
+    lowered = lower(roots, leafmap_of(roots), sum_mode=sum_mode, **lower_kwargs)
+    t1 = time.perf_counter()
     tables = leaf_tables_from_lowered(lowered, leaf_graphs_of(roots), max_loop_num)
+    t2 = time.perf_counter()
     save_lowered(path, lowered, tables)
+    return {"lower_s": t1 - t0, "tables_s": t2 - t1, "save_s": time.perf_counter() - t2}
 
 
 def load_artifact(path: str):

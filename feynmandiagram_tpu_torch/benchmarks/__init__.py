@@ -1,9 +1,13 @@
-"""Probes of the port on one GPU, counterparts of the JAX package's
-``benchmarks/probe_mosaic_caps.py`` and ``benchmarks/probe_gather.py``.
+"""Benchmarks and probes of the port on one GPU, counterparts of the JAX
+package's ``benchmarks/`` scripts of the same names (``probe_mosaic_caps``,
+``probe_gather``, ``bench_config4``, ``certify_sharded``, ``scan_merge``,
+``probe_structure``, ``probe_split``, ``scaling``), and the port's own
+(``profile_pass``, ``gamma4_orders``, ``slice_error``).
 
 Each runs as ``python -m feynmandiagram_tpu_torch.benchmarks.<name>`` on a
-machine with a CUDA card and exits non-zero without one.  The helpers here
-time on the card and name it.
+machine with a CUDA card and exits non-zero without one, unless it is given
+``--device cpu`` where it takes one (``gamma4_orders`` is host work alone).
+The helpers here time on the card and name it.
 """
 from __future__ import annotations
 
@@ -41,3 +45,18 @@ def median_ms(fn: Callable[[], object]) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def events_ms(fn: Callable[..., object], *args, iters: int = 20) -> float:
+    """Mean ms a call of ``fn(*args)`` between two CUDA events around
+    ``iters`` calls back to back, after one warm-up call."""
+    import torch
+    fn(*args)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn(*args)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters

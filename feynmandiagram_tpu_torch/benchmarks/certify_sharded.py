@@ -20,6 +20,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -28,11 +29,16 @@ CPU_RTOL = 1e-10
 
 
 def certify(order: int = 5, n_graph: int = 8, batch: int = 4, device=None, *,
-            roots=None) -> dict:
+            roots=None, lowered=None, live_slots: Optional[int] = None) -> dict:
     """Run the certification and return the JSON line's fields.  ``roots``:
     the order's Gamma4 roots, generated and optimized already (then
-    ``t_generate_s`` and ``t_optimize_s`` are 0).  Raises ``RuntimeError``
-    where the sharded roots leave the unsharded ones."""
+    ``t_generate_s`` and ``t_optimize_s`` are 0).  ``lowered``: the sharded
+    lowering itself, made already for ``n_graph`` ranks as
+    ``lower_sharded_best`` makes it (loaded from an artifact, say), with
+    ``live_slots``, the slots of the order's single-device fused lowering;
+    then nothing is generated or lowered, and the schedule is not known.
+    Raises ``RuntimeError`` where the sharded roots leave the unsharded
+    ones."""
     from ..backends.compile import leafmap_of
     from ..ops import lower, make_evaluator
     from ..ops.dtypes import default_device
@@ -44,8 +50,12 @@ def certify(order: int = 5, n_graph: int = 8, batch: int = 4, device=None, *,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    t_gen = t_opt = 0.0
-    if roots is None:
+    t_gen = t_opt = t_low = 0.0
+    if lowered is not None:
+        if roots is not None or live_slots is None:
+            raise ValueError("a lowering made already takes live_slots and no roots")
+        sched = None
+    elif roots is None:
         from ..computational_graph import optimize_inplace
         from ..frontends import ChargeCharge, Instant, NoHartree
         from ..frontends.parquet import DiagPara, Interaction, Ver4Diag, vertex4
@@ -57,11 +67,12 @@ def certify(order: int = 5, n_graph: int = 8, batch: int = 4, device=None, *,
         t0 = time.perf_counter()
         optimize_inplace(roots, level=1)
         t_opt = time.perf_counter() - t0
-    lm = leafmap_of(roots)
-    t0 = time.perf_counter()
-    lowered, sched = lower_sharded_best(roots, lm, n_graph)
-    live = lower(roots, lm, sum_mode="fused", cse=True, reuse_slots=True)
-    t_low = time.perf_counter() - t0
+    if lowered is None:
+        lm = leafmap_of(roots)
+        t0 = time.perf_counter()
+        lowered, sched = lower_sharded_best(roots, lm, n_graph)
+        live_slots = lower(roots, lm, sum_mode="fused", cse=True, reuse_slots=True).num_slots
+        t_low = time.perf_counter() - t0
 
     nl = lowered.num_leaves - len(lowered.const_slots)
     vals = np.random.default_rng(3).uniform(0.5, 1.5, (nl, batch))
@@ -88,9 +99,9 @@ def certify(order: int = 5, n_graph: int = 8, batch: int = 4, device=None, *,
         "order": order, "n_graph": n_graph, "batch": batch, "device": str(device),
         "dtype": str(single.dtype).split(".")[1], "schedule": sched,
         "full_slots": int(st.full_slots),
-        "live_slots_single_device": int(live.num_slots),
+        "live_slots_single_device": int(live_slots),
         "local_slots_per_rank": int(st.local_slots),
-        "local_vs_live_over_n": round(st.local_slots / (live.num_slots / n_graph), 3),
+        "local_vs_live_over_n": round(st.local_slots / (live_slots / n_graph), 3),
         "num_edges": int(lowered.num_edges),
         "num_levels": len(lowered.levels),
         "halo_rows_total": int(sum(st.halo_rows_per_level)),

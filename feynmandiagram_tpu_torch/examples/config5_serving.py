@@ -84,8 +84,10 @@ def main(argv=None):
     from feynmandiagram_tpu_torch.backends.compile import load_artifact
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    # default = order 5, the near-named config-5 scale (order 6 runs the
-    # same path, ~8x the host generation time)
+    # default = order 5, the near-named config-5 scale; order 6 runs the
+    # same path.  On the host (chip_smoke.py's `gamma4 host:` lines, one core
+    # a process beside other work) order 5 generates and optimizes in ~19 s
+    # and lowers in 11-16 s a mode; order 6 in ~94 s and 77-96 s
     parser.add_argument("order", nargs="?", type=int, default=5)
     parser.add_argument("artifact", nargs="?", default=None)
     parser.add_argument("--device", default=None,

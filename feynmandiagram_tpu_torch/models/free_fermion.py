@@ -8,6 +8,11 @@ Port of ``feynmandiagram_tpu/models/free_fermion.py``.  The kernel is
 with tau == 0 read as tau -> 0^-.  Both branches are one form,
 ``G = sign * exp(phi)`` with ``phi = -eps*tau - softplus(c*eps)``, where
 ``c = -beta`` for tau > 0 and ``c = beta`` otherwise, so G never overflows.
+Since ``softplus(beta*eps) = softplus(-beta*eps) + beta*eps``, the same G is
+``sign * exp(-eps*tau1 - softplus(-beta*eps))`` with ``tau1 = tau`` for
+tau > 0 and ``tau + beta`` otherwise: a factor of tau alone and one of eps
+alone (``green_tau_parts``, ``green_eps_part``), which a caller evaluates
+once per tau pair and per momentum and combines per leaf.
 
 The reference differentiates with nested ``jax.grad``.  Here the derivatives
 are closed-form: ``d^n G/d eps^n = G * B_n(phi', ..., phi^(n))`` with the
@@ -67,6 +72,20 @@ def _green_parts(tau: torch.Tensor, eps: torch.Tensor, beta: float):
     u = c * eps
     g = sign * torch.exp(-eps * tau - _softplus(u))
     return tau, c, u, g
+
+
+def green_tau_parts(tau: torch.Tensor, beta: float):
+    """``(sign, tau1)`` of ``G = sign * exp(-eps*tau1 - softplus(-beta*eps))``:
+    ``+1, tau`` for tau > 0 and ``-1, tau + beta`` otherwise."""
+    tau = torch.where(tau.abs() < TAU_CUTOFF, tau.new_full((), -TAU_CUTOFF), tau)
+    pos = tau > 0
+    return pos.to(tau.dtype) * 2 - 1, torch.where(pos, tau, tau + beta)
+
+
+def green_eps_part(eps: torch.Tensor, beta: float) -> torch.Tensor:
+    """``softplus(-beta*eps)``, the factor of eps alone in
+    ``green_tau_parts``' form of G."""
+    return _softplus(-beta * eps)
 
 
 def green_kernel(tau: torch.Tensor, eps: torch.Tensor, beta: float) -> torch.Tensor:

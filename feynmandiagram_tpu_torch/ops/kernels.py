@@ -134,8 +134,11 @@ def bucket_gather_reduce_plain(w: torch.Tensor, idx: torch.Tensor, fac: torch.Te
     """Plain PyTorch version of the kernel, on any device, in place on ``w``.
 
     Term order follows the JAX evaluator: ``(w[idx[0]] * fac) * w[idx[1]] *
-    ...``, then a sum over the terms (Kahan-compensated if asked).  With
-    ``src`` the terms read rows of ``src`` instead of ``w``.
+    ...``, then the terms are added in order ``a = 0, 1, ...``
+    (Kahan-compensated if asked), as the kernel adds them, so a column's
+    value does not depend on the other columns (``torch.sum`` over the
+    terms chose its order by the batch's width on the CPU).  With ``src``
+    the terms read rows of ``src`` instead of ``w``.
     ``chunk_rows`` bounds the temporaries to ``n_op * arity * chunk_rows``
     gathered rows."""
     _check(w, idx, fac, start)
@@ -151,8 +154,8 @@ def bucket_gather_reduce_plain(w: torch.Tensor, idx: torch.Tensor, fac: torch.Te
         for k in range(1, n_op):
             block = block * torch.index_select(rows, 0, ix[k].reshape(-1)).view(
                 arity, c1 - c0, -1).to(a)
+        s = block[0]
         if compensated:
-            s = block[0]
             comp = torch.zeros_like(s)
             for i in range(1, arity):
                 y = block[i] - comp
@@ -160,7 +163,8 @@ def bucket_gather_reduce_plain(w: torch.Tensor, idx: torch.Tensor, fac: torch.Te
                 comp = (t - s) - y
                 s = t
         else:
-            s = block.sum(dim=0)
+            for i in range(1, arity):
+                s = s + block[i]
         w[start + c0:start + c1] = s.to(w.dtype)
 
 

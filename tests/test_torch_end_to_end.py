@@ -111,8 +111,9 @@ def test_port_runs_with_jax_blocked(tmp_path):
     differentiates (``taylorAD([2, 2])``), lowers and evaluates the order-2
     self-energy's counterterm series (config 4); runs the ED oracle; imports
     and runs the two probe modules on the CPU; builds a graph-sharded
-    evaluator on a local 4-rank mesh and holds it to the unsharded one; and
-    loads no module of either."""
+    evaluator on a local 4-rank mesh and holds it to the unsharded one;
+    imports the order-scan scripts and runs two of their helpers; and loads
+    no module of either."""
     roots, _, para = _vertex4(2)
     varK, varT = _samples(para, 8, 11)
     expected = np.asarray(jax_compile.compile_evaluator(
@@ -168,6 +169,10 @@ sharded = make_graph_sharded_evaluator(low, Mesh([("graph", 4)], device="cpu"))
 assert sharded.stats.local_slots < low.num_slots
 assert torch.allclose(sharded(vals), make_evaluator(low, device="cpu")(vals), rtol=1e-12,
                       atol=0)
+from feynmandiagram_tpu_torch.benchmarks import (gamma4_orders, probe_split, probe_structure,
+                                                 scaling, scan_merge)
+assert probe_structure.structure(low)["edges"] == low.num_edges
+assert gamma4_orders.column_windows(64, 16)[1] == slice(32, 48)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "feynmandiagram_tpu") and sys.modules[m])
 assert not loaded, loaded
@@ -211,7 +216,10 @@ def test_port_imports_nothing_of_the_jax_package():
     assert len(files) > 40
     for new in ("graft_entry.py", "utils/profiling.py", "backends/source.py",
                 "backends/to_dot.py", "benchmarks/profile_pass.py",
-                "frontends/gv/generator/tables.py", "frontends/gv/generator/__main__.py"):
+                "frontends/gv/generator/tables.py", "frontends/gv/generator/__main__.py",
+                "benchmarks/gamma4_orders.py", "benchmarks/scan_merge.py",
+                "benchmarks/probe_structure.py", "benchmarks/probe_split.py",
+                "benchmarks/scaling.py"):
         assert os.path.join(REPO, PORT, new) in files, new
     for path in files:
         with open(path) as f:

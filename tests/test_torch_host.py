@@ -277,3 +277,69 @@ def test_taylor_lowerings_and_leaf_tables_identical(taylor_generated, order, sum
         x, y = getattr(tab_p, f.name), getattr(tab_r, f.name)
         assert x.dtype == y.dtype and np.array_equal(x, y), f.name
     assert set(tab_p.g_order.tolist()) == set(tab_p.v_order.tolist()) == {0, 1, 2}
+
+
+def _near_momenta(seed, n=400, width=6):
+    """``n`` loop momenta drawn from 40 base vectors (25 of entries -1/0/1,
+    15 uniform): exact repeats, copies moved by half the ``np.allclose``
+    tolerance (the same row), by 1.5 times it (a new row), and triples of
+    two rows 1.5 tolerances apart with a third within the tolerance of both,
+    which must take the first."""
+    rng = np.random.default_rng(seed)
+
+    def tol(x):
+        return 1e-8 + 1.49e-8 * abs(x)
+
+    base = ([rng.integers(-1, 2, width).astype(float) for _ in range(25)]
+            + [rng.uniform(-3, 3, width) for _ in range(15)])
+    out = []
+    while len(out) < n:
+        b = base[rng.integers(len(base))].copy()
+        j, kind = rng.integers(width), rng.integers(5)
+        if kind == 1:
+            b[j] += 0.5 * tol(b[j])
+        elif kind == 2:
+            b[j] += 1.5 * tol(b[j]) + 1e-9
+        elif kind == 3:
+            c, m = b.copy(), b.copy()
+            c[j] += 1.5 * tol(b[j]) + 1e-9
+            m[j] += 0.8 * tol(b[j])
+            out += [b, c, m]
+            continue
+        out.append(b)
+    return out[:n]
+
+
+def _fake_leaves(pkg, momenta, seed):
+    """A lowering's leaf slots (shuffled, then one constant slot) and leaf
+    graphs for ``momenta``, each a Green's function leaf of package
+    ``pkg``."""
+    from types import SimpleNamespace
+    fe = importlib.import_module(f"{pkg}.frontends")
+    slots = np.random.default_rng(seed).permutation(len(momenta))
+    uid_to_slot = {100 + i: int(s) for i, s in enumerate(slots)}
+    uid_to_slot[99] = len(momenta)
+    graphs = {100 + i: SimpleNamespace(properties=fe.BareGreenId(k=k, t=(1, 2)), orders=(0, 0))
+              for i, k in enumerate(momenta)}
+    return SimpleNamespace(num_leaves=len(momenta) + 1, const_slots=[len(momenta)],
+                           leaf_uid_to_slot=uid_to_slot), graphs
+
+
+@pytest.mark.parametrize("seed,width", [(0, 6), (1, 6), (2, 9)])
+def test_leaf_basis_search_equals_the_reference_scan(seed, width):
+    """The port's loop-basis search (an exact match, else one vectorised
+    ``np.isclose`` against all rows) against the JAX package's row-by-row
+    ``np.allclose`` scan, on momenta inside and just outside the tolerance
+    of rows found before: identical tables, first match first."""
+    momenta = _near_momenta(seed, width=width)
+    tabs = {}
+    for pkg in (REF, PORT):
+        lowered, graphs = _fake_leaves(pkg, momenta, seed)
+        tabs[pkg] = importlib.import_module(f"{pkg}.ops.leaf_eval").leaf_tables_from_lowered(
+            lowered, graphs, width + 1)
+    for f in dataclasses.fields(tabs[REF]):
+        x, y = getattr(tabs[PORT], f.name), getattr(tabs[REF], f.name)
+        assert x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y), f.name
+    # the case has rows merged within the tolerance and rows kept apart
+    n_rows, n_distinct = len(tabs[PORT].loop_basis), len({tuple(k) for k in momenta})
+    assert 40 < n_rows < n_distinct

@@ -1,5 +1,6 @@
 """The port's leaf phase against the JAX package's, in float64: the leaf
-tables field by field, and the leaf values on the same numpy samples."""
+tables field by field, and the leaf values on the same numpy samples; in
+float32, each leaf is the float64 value rounded once."""
 import numpy as np
 import pytest
 
@@ -91,6 +92,26 @@ def test_leaf_values_match_jax(case, convention):
     assert got.dtype == torch.float64 and got.shape == expected.shape
     np.testing.assert_allclose(got.numpy(), expected, rtol=1e-12,
                                atol=1e-12 * np.abs(expected).max())
+
+
+def test_float32_leaves_are_float64_rounded_once(case):
+    """The float32 leaf phase computes in float64 and rounds each leaf once
+    (the JAX package computes in float32): bit for bit the float64 values
+    cast to float32, and within half an ulp of the JAX package's float64
+    leaves."""
+    jt, pt, max_loop, n_tau = case
+    rng = np.random.default_rng(6)
+    varK = rng.standard_normal((3, max_loop, 64))
+    varT = rng.random((n_tau, 64)) * BETA
+    kw = dict(beta=BETA, kF=KF, lam=LAM, device="cpu")
+    got = make_leaf_evaluator(pt, dtype=torch.float32, **kw)(varK, varT)
+    f64 = make_leaf_evaluator(pt, dtype=torch.float64, **kw)(varK, varT)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), f64.float().numpy())
+    ref = np.asarray(jax_leaf.make_leaf_evaluator(
+        jt, beta=BETA, kF=KF, lam=LAM, dtype=np.float64)(varK, varT))
+    assert (np.abs(got.numpy().astype(np.float64) - ref)
+            <= 2.0 ** -24 * (1 + 1e-9) * np.abs(ref)).all()
 
 
 def test_from_arrays_takes_jax_tables(case):

@@ -47,6 +47,19 @@ def test_green_kernel_matches_jax():
                                rtol=1e-12, atol=0)
 
 
+def test_green_factors_match_jax():
+    """The leaf phase's form of G, ``sign * exp(-(eps*tau1 +
+    softplus(-beta*eps)))`` from ``green_tau_parts`` and ``green_eps_part``,
+    against the JAX package's kernel in float64 at rtol 1e-12, on the same
+    points: both signs of tau, tau at and near 0, |eps*beta| up to 200."""
+    from feynmandiagram_tpu_torch.models.free_fermion import green_eps_part, green_tau_parts
+    tau, eps = _points()
+    sign, tau1 = green_tau_parts(torch.from_numpy(tau), BETA)
+    sp = green_eps_part(torch.from_numpy(eps), BETA)
+    got = (torch.exp(-(torch.from_numpy(eps) * tau1 + sp)) * sign).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax_green(tau, eps, BETA)), rtol=1e-12, atol=0)
+
+
 @pytest.mark.parametrize("order", range(6))
 def test_green_tower_matches_jax(order):
     tau, eps = _points()
