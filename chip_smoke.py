@@ -149,7 +149,27 @@ output line or more each:
    WINDOW columns of the same leaf values run alone.  A root outside
    SLICE_TOL prints ``MISS:`` with its error under Kahan sums, float64
    accumulation and a float64 graph phase, and fails the run at the
-   phase's end, after a JSON line of the misses.
+   phase's end, after a JSON line of the misses;
+11. the whole pass captured as CUDA graphs, the counterpart of the JAX
+   package's ``jit`` (``jit:``, ``jit mc:`` and ``jit time:`` lines):
+   order-4 Gamma4 fused and bucketed through ``compile_evaluator(jit=True)``
+   at batch 4096, a ragged 4097 and 8192; config 4 fused at 8192, GV
+   sigma 6 fused and Gamma4 order 6 fused and bucketed at 4096 through
+   ``CompiledEvaluator.jitted()``: the captured pass (its first call and a
+   replay) bit for bit against the eager pass where two eager passes agree
+   bit for bit, else within SLICE_TOL of the float64 plain path;
+   ``mc_run(jit=True)`` against ``mc_run(jit=False)`` on one seed; then, the
+   eager pass beside the captured one, samples/s in turns, wall, profiler
+   busy time, idle share, device time with the host out of the way, the
+   host's time a pass and a replay, the level kernels a pass counted by the
+   profiler's kernel names (``level_gather_reduce.launches`` counts a
+   capture, never a replay) and the peak of allocated memory, at batches
+   4096, 8192 and 16384 (order 6 at 4096 and 8192: 16384 passes 2^31
+   elements of w; bucketed at 4096); the Hubbard atom at orders 1-5 and
+   65,536 through ``build_sigma_evaluator(jit=True)``, two U through one
+   captured evaluator against two eager calls, ``sigma_mc(jit=True)``
+   against the closed-form series, and the same clocks.  Each graph is
+   freed before the next case; a failed capture or replay fails the run.
 
 Then the run's seconds, one JSON line on the ten kernels, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, and so
@@ -226,6 +246,15 @@ WINDOW = 512
 CHILD_TIMEOUT = 900
 MC_RUN_MS = 400.0       # the least length of a timed Monte-Carlo run, where passes are long
 PROFILE_COVER = 0.8
+# the jit phase: the Monte-Carlo batches of its captured cases, and the host's
+# calls timed behind a sleep kernel of JIT_SLEEP_CYCLES (few enough that the
+# launch queue never fills while the device sleeps)
+JIT_MC_BATCHES = (4096, 8192, 16384)
+JIT_HOST_CALLS, JIT_SLEEP_CYCLES = 3, 2 ** 28
+# busy (profiler) and wall (CUDA events) are read in different runs of a
+# pass: a captured pass leaves the device no idle time, and its busy time
+# then reads up to a few tenths of a percent above its wall
+JIT_BUSY_SLACK = 0.02
 RAGGED_BATCH = 4097     # no multiple of 4: rows lose their 16-byte alignment
 M = 2 ** 20
 # (widest record in pieces, bytes a column group may touch): the kernel's
@@ -316,7 +345,7 @@ def main() -> None:
     from feynmandiagram_tpu_torch.frontends import ChargeCharge, Instant, NoHartree
     from feynmandiagram_tpu_torch.frontends.parquet import (DiagPara, Interaction, Ver4Diag,
                                                             vertex4)
-    from feynmandiagram_tpu_torch.mc import mc_run, mc_samples_per_s
+    from feynmandiagram_tpu_torch.mc import CapturedLoop, mc_run, mc_samples_per_s
     from feynmandiagram_tpu_torch.backends.compile import leafmap_of
     from feynmandiagram_tpu_torch.benchmarks import card_name, median_ms, probe_gather
     from feynmandiagram_tpu_torch.benchmarks import probe_mosaic_caps as pm
@@ -596,6 +625,7 @@ def main() -> None:
     varK = gen.standard_normal((3, para.totalLoopNum, BATCH))
     varT = gen.random((n_tau, BATCH)) * BETA
     launches = {}
+    jit_keep = {}   # evaluators that the jit phase runs captured: label -> (compiled, para)
     for mode in ("fused", "bucketed"):
         n_levels, errs = check_slice(compiled[mode], [(varK, varT)], f"{mode} slice")
         launches[mode] = n_levels
@@ -659,14 +689,16 @@ def main() -> None:
                 fail("the host did not enqueue a timed call within a sleep of 2^32 cycles")
         return np.median(np.asarray(runs), axis=0)
 
-    def device_ms_by_kernel(fn, n=10):
+    def profile_calls(fn, n=10):
         """The profiler's device time per call of fn, by kernel name, for
         calls that wait for the device or copy from the host (the
         Monte-Carlo pass, the probes' plain versions): each kernel's own
-        time summed over n calls, after one untraced call.  The host idles
-        10 ms at each end of the trace (without that the profiler on the
-        card dropped the first kernels of short traces); a trace without
-        device time is taken again, up to TRACE_TRIES times."""
+        time summed over n calls, after one untraced call; and the level
+        kernels a call, counted by name (a CUDA graph's replay launches
+        kernels that no launch counter sees).  The host idles 10 ms at
+        each end of the trace (without that the profiler on the card
+        dropped the first kernels of short traces); a trace without device
+        time is taken again, up to TRACE_TRIES times."""
         for _ in range(TRACE_TRIES):
             fn()
             torch.cuda.synchronize()
@@ -678,12 +710,18 @@ def main() -> None:
                 time.sleep(0.01)
             # the hot path's profiler scopes show on the device as annotation
             # spans over their kernels: those are not kernels
+            events = [e for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA") and not e.is_user_annotation]
             by_kernel = {e.key: getattr(e, "self_device_time_total", 0) / n / 1e3
-                         for e in prof.key_averages()
-                         if str(e.device_type).endswith("CUDA") and not e.is_user_annotation}
+                         for e in events}
             if sum(by_kernel.values()) > 0:
-                return by_kernel
+                return by_kernel, sum(e.count for e in events
+                                      if "gather_reduce_kernel" in e.key) / n
         fail(f"the profiler saw no device time in {TRACE_TRIES} traces")
+
+    def device_ms_by_kernel(fn, n=10):
+        """profile_calls' device time per call by kernel name."""
+        return profile_calls(fn, n)[0]
 
     def busy_ms(fn, n=10):
         """The profiler's device busy time per call of fn:
@@ -1033,6 +1071,22 @@ def main() -> None:
     from feynmandiagram_tpu_torch.models import hubbard_atom as ha
     series = ha.sigma_power_series(HUBBARD_BETA)
     hubbard = {}
+
+    def against_series(order, mean, err):
+        """sigma_mc's (mean, stderr) at order against the closed-form
+        series: order 1 exactly -U/2 (within ORDER1_REL), orders 2-5 within
+        5 stderr (floored at HUBBARD_FLOOR).  The series' value, whether it
+        held, and the distance in stderr."""
+        expect = complex(series[order - 1] * HUBBARD_U ** order)
+        if order == 1:
+            half = HUBBARD_U / 2
+            ok = abs(mean.real + half) <= ORDER1_REL * half and abs(mean.imag) <= ORDER1_REL
+            return expect, ok, "n/a (no free tau)"
+        bars = (5 * max(abs(err.real), HUBBARD_FLOOR[order]),
+                5 * max(abs(err.imag), HUBBARD_FLOOR[order]))
+        ok = abs(mean.real - expect.real) < bars[0] and abs(mean.imag - expect.imag) < bars[1]
+        return expect, ok, (f"Re {(mean.real - expect.real) / err.real:+.2f}, "
+                            f"Im {(mean.imag - expect.imag) / err.imag:+.2f}")
     for order in HUBBARD_ORDERS:
         t0 = time.perf_counter()
         hs = ha.build_sigma_evaluator(order, HUBBARD_BETA, device=dev, dtype=torch.float32)
@@ -1065,17 +1119,7 @@ def main() -> None:
         mean, err = ha.sigma_mc(order, HUBBARD_U, HUBBARD_BETA, batch=HUBBARD_BATCH,
                                 chunks=HUBBARD_CHUNKS, seed=order, device=dev,
                                 dtype=torch.float32)
-        expect = complex(series[order - 1] * HUBBARD_U ** order)
-        if order == 1:
-            half = HUBBARD_U / 2
-            ok = abs(mean.real + half) <= ORDER1_REL * half and abs(mean.imag) <= ORDER1_REL
-            z = "n/a (no free tau)"
-        else:
-            bars = (5 * max(abs(err.real), HUBBARD_FLOOR[order]),
-                    5 * max(abs(err.imag), HUBBARD_FLOOR[order]))
-            ok = abs(mean.real - expect.real) < bars[0] and abs(mean.imag - expect.imag) < bars[1]
-            z = (f"Re {(mean.real - expect.real) / err.real:+.2f}, "
-                 f"Im {(mean.imag - expect.imag) / err.imag:+.2f}")
+        expect, ok, z = against_series(order, mean, err)
         print(f"hubbard: order {order}, beta {HUBBARD_BETA}, U {HUBBARD_U}, f32: {n_launch} level "
               f"launches a pass (expected {HUBBARD_BUCKET_LEVELS[order]}); kernel vs f64 plain, "
               f"batch {HUBBARD_BATCH}, max|d|/max|ref| Re {rel[0]:.3e} Im {rel[1]:.3e} (limit "
@@ -1176,6 +1220,7 @@ def main() -> None:
           f"back: {len(tabs4)} level launches {ld:.4f} ms ({bound / ld:.3f} of the bound "
           f"{bound:.4f} ms); plain, level by level, {plain:.4f} ms  [{smi}]", flush=True)
     levels_line(f"config4 levels: fused batch {batch} f32", per_level, bounds)
+    jit_keep["config 4 fused"] = (fused4, para4)    # for the jit phase
     del fused4, w, tabs4, leaves4, vk, vt
     torch.cuda.empty_cache()
 
@@ -1518,6 +1563,8 @@ def main() -> None:
             rep.update({f"mc_{b}": m for b, m in mc_lines(
                 c6, sizes6, (BATCH, 4 * BATCH), "gv mc: sigma 6 fused").items()})
         gv6[mode] = rep
+        if mode == "fused":
+            jit_keep["GV sigma 6 fused"] = (c6, sizes6)    # for the jit phase
         del c6
         torch.cuda.empty_cache()
     del roots6
@@ -2512,6 +2559,8 @@ def main() -> None:
     for order, mode, batch in BIG_PASSES:
         g4_big.append({"order": order, "mode": mode,
                        **big_pass(order, mode, (c5 if order == 5 else c6)[mode], batch)})
+    for mode in ("fused", "bucketed"):
+        jit_keep[f"gamma4 order 6 {mode}"] = (c6[mode], g4.vertex4_para(6))
     del c5, c6
     torch.cuda.empty_cache()
     phase("gamma4: past 2^31")
@@ -2520,6 +2569,247 @@ def main() -> None:
         fail("gamma4: the float32 pass left SLICE_TOL of the float64 plain path: "
              + "; ".join(f"{m['check']}, batch {m['batch']}, root {m['root']}: "
                          f"{m['max_rel_err']:.3e}" for m in g4_misses))
+
+
+    # -- 11. the whole pass captured as CUDA graphs: jit=True
+    def host_ms(fn, n=JIT_HOST_CALLS):
+        """The host's time per call of fn, n calls enqueued behind a sleep
+        kernel, so that the device never makes the host wait; None where the
+        sleep ended before the host was done: a call waited for the device
+        (a copy from pageable host memory, an allocation that frees cached
+        blocks)."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(JIT_SLEEP_CYCLES)
+        slept = torch.cuda.Event()
+        slept.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out = (time.perf_counter() - t0) / n * 1e3
+        waited = slept.query()
+        torch.cuda.synchronize()
+        return None if waited else out
+
+    def pass_clocks(fn, queued=True):
+        """One pass's clocks: the profiler's busy time and level kernels a
+        call, the wall (events around 20 calls), the device time with the
+        host out of the way (queued_ms; not where fn waits for the device)
+        and the host's time a call (host_ms)."""
+        by_kernel, n_level = profile_calls(fn)
+        return {"busy_ms": sum(by_kernel.values()), "level_kernels": n_level,
+                "wall_ms": wall_ms(fn, n=20), "queued_ms": queued_ms(fn) if queued else None,
+                "host_ms": host_ms(fn)}
+
+    def fmt_ms(x):
+        return "n/a (waits for the device)" if x is None else f"{x:.4f}"
+
+    def held(eager, got, plain64):
+        """Captured outputs got (a list) against eager, a function of no
+        arguments: bit for bit where two eager calls are, else within
+        SLICE_TOL of plain64() per root (or channel), and the line says so."""
+        e1, e2 = eager(), eager()
+        torch.cuda.synchronize()
+        if torch.equal(e1, e2):
+            ok = all(g.shape == e1.shape and torch.equal(g, e1) for g in got)
+            return ok, "two eager passes bit for bit; captured vs eager bit for bit: " + str(ok)
+        ref = plain64()
+        scale = ref.abs().max(dim=1).values.clamp_min(torch.finfo(torch.float64).tiny)
+        rel = max(((g.double() - ref).abs().max(dim=1).values / scale).max().item() for g in got)
+        return rel <= SLICE_TOL, (f"two eager passes differ (max|diff| "
+                                  f"{(e1 - e2).abs().max().item():.3e}), so the captured pass "
+                                  f"is held to the f64 plain path: worst {rel:.3e} (limit "
+                                  f"{SLICE_TOL:g})")
+
+    def jit_case(label, c, para_c, check_batches, mc_batches, cj=None):
+        """One captured path: c.jitted() (or cj, compile_evaluator(jit=True)),
+        its first call and a replay at each of check_batches against the
+        eager pass; at each of mc_batches mc_run(jit=True) against
+        mc_run(jit=False) on one seed, then the eager and the captured pass
+        side by side: samples/s (in turns), wall, busy, idle share, the
+        host's time a pass (a replay), level kernels a pass by the
+        profiler's kernel names, and the peak of allocated memory."""
+        n_levels = sum(1 for lvl in c.lowered.levels if level_buckets(lvl))
+        cj = cj if cj is not None else c.jitted()
+        ref_leaf = make_leaf_evaluator(c.tables, beta=BETA, kF=KF, lam=LAM, device=dev,
+                                       dtype=torch.float64)
+        ref_graph = make_evaluator(c.lowered, device=dev, dtype=torch.float64, kernel=False)
+        rep = {"levels": n_levels, "check": {}, "mc": {}}
+        for batch in check_batches:
+            vk = torch.as_tensor(gen.standard_normal((3, para_c.totalLoopNum, batch)),
+                                 device=dev)
+            vt = torch.as_tensor(gen.random((para_c.totalTauNum, batch)) * BETA, device=dev)
+            got = [cj(vk, vt), cj(vk, vt)]
+            ok, how = held(lambda: c(vk, vt), got,
+                           lambda: ref_graph(ref_leaf(vk, vt)))
+            print(f"jit: {label}, batch {batch} f32, the captured pass (its first call, then a "
+                  f"replay) against the eager pass on the same inputs: {how}", flush=True)
+            if not ok or not torch.isfinite(got[0]).all():
+                fail(f"jit {label}, batch {batch}: the captured pass left the eager one")
+            rep["check"][batch] = how
+            del vk, vt, got
+        del cj, ref_leaf, ref_graph
+        torch.cuda.empty_cache()
+        for batch in mc_batches:
+            kw = dict(n_loop=para_c.totalLoopNum, num_tau=para_c.totalTauNum, batch=batch,
+                      n_roots=len(c.lowered.root_slots), device=dev, dtype=torch.float32,
+                      beta=BETA)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            want = mc_run(c.fn, iters=3, seed=SEED, **kw)
+            torch.cuda.synchronize()
+            mem_e = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loop = CapturedLoop(c, **kw)
+            got = loop.run(SEED, 3)
+            torch.cuda.synchronize()
+            mem_j = torch.cuda.max_memory_allocated()
+            draws = "the eager draws"
+            if not torch.equal(got, want):
+                # the captured Philox stream may differ from the eager one:
+                # hold the eager pass on the static draws of one replay
+                loop.run(SEED, 1)
+                vk, vt, acc = loop.varK.clone(), loop.varT.clone(), loop.acc.clone()
+                ok, how = held(lambda: c.fn(vk, vt).sum(dim=1)[None], [acc[None]],
+                               lambda: ref_graph_sum(c, vk, vt))
+                draws = f"draws of its own (not the eager stream); one replay on them: {how}"
+                if not ok:
+                    fail(f"jit {label} mc, batch {batch}: the captured loop's sums differ from "
+                         f"the eager pass on the same draws")
+            print(f"jit mc: {label}, batch {batch} f32: mc_run(jit=True) vs mc_run(jit=False), "
+                  f"seed {SEED}, 3 passes: bit for bit {torch.equal(got, want)}; the captured "
+                  f"loop ran on {draws}", flush=True)
+
+            def one_e():
+                mc_run(c.fn, iters=1, seed=SEED, **kw)
+
+            def one_j():
+                loop.run(SEED, 1)
+
+            clocks = {"eager": pass_clocks(one_e), "captured": pass_clocks(one_j)}
+            clocks["captured"]["host_ms_replay"] = host_ms(loop.graph.replay)
+            iters = min(100, max(10, int(MC_RUN_MS / clocks["eager"]["wall_ms"])))
+            sps = {"eager": [], "captured": []}
+            for mode in ("eager", "captured", "captured", "eager"):
+                sps[mode].append(mc_samples_per_s(c if mode == "captured" else c.fn,
+                                                  iters=iters, reps=3,
+                                                  jit=mode == "captured", **kw))
+            for mode, m in clocks.items():
+                m["samples_per_s"] = float(np.mean(sps[mode]))
+                m["idle"] = 1 - m["busy_ms"] / m["wall_ms"]
+                m["peak_gib"] = (mem_e if mode == "eager" else mem_j) / 2 ** 30
+            e, j = clocks["eager"], clocks["captured"]
+            print(f"jit time: {label}, batch {batch} f32, eager / captured: samples/s "
+                  f"{e['samples_per_s']:.1f} / {j['samples_per_s']:.1f} "
+                  f"({j['samples_per_s'] / e['samples_per_s']:.2f}x; {iters} passes a run, in "
+                  f"turns); a pass: wall {e['wall_ms']:.4f} / {j['wall_ms']:.4f} ms, busy "
+                  f"(profiler) {e['busy_ms']:.4f} / {j['busy_ms']:.4f} ms, idle "
+                  f"{e['idle']:.3f} / {j['idle']:.3f}, device with the host out of the way "
+                  f"(queued_ms) {fmt_ms(e['queued_ms'])} / {fmt_ms(j['queued_ms'])} ms, host "
+                  f"{fmt_ms(e['host_ms'])} / {fmt_ms(j['host_ms'])} ms (the replay alone "
+                  f"{fmt_ms(j['host_ms_replay'])}); level kernels a pass by the profiler's names "
+                  f"{e['level_kernels']:.1f} / {j['level_kernels']:.1f} (levels that hold "
+                  f"buckets: {n_levels}); peak allocated {e['peak_gib']:.3f} / "
+                  f"{j['peak_gib']:.3f} GiB (allocated before: {base / 2 ** 30:.3f})  [{smi}]",
+                  flush=True)
+            if max(j["busy_ms"] / j["wall_ms"], e["busy_ms"] / e["wall_ms"]) > 1 + JIT_BUSY_SLACK:
+                fail(f"jit {label}, batch {batch}: device busy more than {JIT_BUSY_SLACK:g} above "
+                     f"the wall of the same pass: a faulty clock reading")
+            rep["mc"][batch] = {"bit_for_bit": torch.equal(got, want), **{
+                f"{mode}_{k}": v for mode, m in clocks.items() for k, v in m.items()}}
+            del loop, want, got
+            torch.cuda.empty_cache()
+        return rep
+
+    def ref_graph_sum(c, vk, vt):
+        """The f64 plain pass's roots summed over the batch, as a [1, R] row."""
+        leaf = make_leaf_evaluator(c.tables, beta=BETA, kF=KF, lam=LAM, device=dev,
+                                   dtype=torch.float64)
+        return make_evaluator(c.lowered, device=dev, dtype=torch.float64, kernel=False)(
+            leaf(vk, vt)).sum(dim=1)[None]
+
+    print("jit: level_gather_reduce.launches counts a capture's launches, never a replay's "
+          "(a replay runs no Python): the jit lines count level kernels by the profiler's "
+          "kernel names", flush=True)
+    jit_report = {}
+    for mode in ("fused", "bucketed"):
+        label = f"order-4 Gamma4 {mode}"
+        cj = compile_evaluator(roots, max_loop_num=para.totalLoopNum, beta=BETA, kF=KF, lam=LAM,
+                               device=dev, dtype=torch.float32, sum_mode=mode, jit=True)
+        jit_report[label] = jit_case(label, compiled[mode], para,
+                                     (BATCH, RAGGED_BATCH, 2 * BATCH), JIT_MC_BATCHES, cj=cj)
+        del cj
+    phase("jit: order-4 Gamma4")
+    for label, check_batches, mc_batches in (
+            ("config 4 fused", (2 * BATCH,), JIT_MC_BATCHES),
+            ("GV sigma 6 fused", (BATCH,), JIT_MC_BATCHES),
+            ("gamma4 order 6 fused", (BATCH,), (BATCH, 2 * BATCH)),
+            ("gamma4 order 6 bucketed", (BATCH,), (BATCH,))):
+        c_, para_c = jit_keep.pop(label)
+        jit_report[label] = jit_case(label, c_, para_c, check_batches, mc_batches)
+        del c_
+        torch.cuda.empty_cache()
+        phase(f"jit: {label}")
+
+    # the Hubbard atom captured: two U through one graph, sigma_mc, times
+    for order in HUBBARD_ORDERS:
+        hs = ha.build_sigma_evaluator(order, HUBBARD_BETA, device=dev, dtype=torch.float32)
+        hj = ha.build_sigma_evaluator(order, HUBBARD_BETA, device=dev, dtype=torch.float32,
+                                      jit=True)
+        plain_hs = ha.build_sigma_evaluator(order, HUBBARD_BETA, device=dev,
+                                            dtype=torch.float64, kernel=False)
+        hub_varT = torch.as_tensor(gen.random((hs.num_tau, HUBBARD_BATCH)) * HUBBARD_BETA,
+                                   device=dev)
+        hub_varT[0] = 0.0
+        hows = []
+        for u in (HUBBARD_U, 0.5 * HUBBARD_U):
+            got = [hj.fn(hub_varT, u), hj.fn(hub_varT, u)]
+            ok, how = held(lambda: hs.fn(hub_varT, u), got,
+                           lambda: plain_hs.fn(hub_varT, u))
+            hows.append(f"U {u}: {how}")
+            if not ok or got[0].shape != (2, HUBBARD_BATCH):
+                fail(f"jit Hubbard order {order}, U {u}: the captured pass left the eager one")
+        mean, err = ha.sigma_mc(order, HUBBARD_U, HUBBARD_BETA, batch=HUBBARD_BATCH,
+                                chunks=HUBBARD_CHUNKS, seed=order, device=dev,
+                                dtype=torch.float32, jit=True)
+        expect, ok, z = against_series(order, mean, err)
+        print(f"jit: Hubbard order {order}, batch {HUBBARD_BATCH} f32, two U through one "
+              f"captured evaluator: " + "; ".join(hows) + f"; sigma_mc(jit=True) "
+              f"{HUBBARD_BATCH} x {HUBBARD_CHUNKS}, seed {order}: mean {mean:.6f}, stderr "
+              f"{err:.6f}, series {expect:.6f}, (mean - series)/stderr {z}", flush=True)
+        if not ok:
+            fail(f"jit Hubbard order {order}: sigma_mc(jit=True) {mean} (stderr {err}) against "
+                 f"the series {expect}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the eager call copies U from the host, which waits for the device:
+        # no queued_ms of it
+        clocks = {"eager": pass_clocks(lambda: hs.fn(hub_varT, HUBBARD_U), queued=False)}
+        mem_e = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        clocks["captured"] = pass_clocks(lambda: hj.fn(hub_varT, HUBBARD_U))
+        mem_j = torch.cuda.max_memory_allocated()
+        for mode, m in clocks.items():
+            m["samples_per_s"] = HUBBARD_BATCH / m["wall_ms"] * 1e3
+            m["idle"] = 1 - m["busy_ms"] / m["wall_ms"]
+            m["peak_gib"] = (mem_e if mode == "eager" else mem_j) / 2 ** 30
+        e, j = clocks["eager"], clocks["captured"]
+        print(f"jit time: Hubbard order {order}, batch {HUBBARD_BATCH} f32, one call of fn, "
+              f"eager / captured: samples/s {e['samples_per_s']:.0f} / {j['samples_per_s']:.0f} "
+              f"({j['samples_per_s'] / e['samples_per_s']:.2f}x); wall {e['wall_ms']:.4f} / "
+              f"{j['wall_ms']:.4f} ms, busy {e['busy_ms']:.4f} / {j['busy_ms']:.4f} ms, idle "
+              f"{e['idle']:.3f} / {j['idle']:.3f}, queued_ms {fmt_ms(e['queued_ms'])} / "
+              f"{fmt_ms(j['queued_ms'])} ms, host {fmt_ms(e['host_ms'])} / {fmt_ms(j['host_ms'])} ms; level "
+              f"kernels a call {e['level_kernels']:.1f} / {j['level_kernels']:.1f} (expected "
+              f"{HUBBARD_BUCKET_LEVELS[order]}); peak allocated {e['peak_gib']:.3f} / "
+              f"{j['peak_gib']:.3f} GiB  [{smi}]", flush=True)
+        jit_report[f"Hubbard order {order}"] = {
+            "two_U": hows, "sigma_mc_jit": [mean.real, mean.imag, err.real, err.imag],
+            **{f"{mode}_{k}": v for mode, m in clocks.items() for k, v in m.items()}}
+        del hs, hj, plain_hs, hub_varT, got
+        torch.cuda.empty_cache()
+    phase("jit: Hubbard atom")
 
 
     fused, bucketed = times["fused"], times["bucketed"]
@@ -2546,7 +2836,8 @@ def main() -> None:
         "hubbard": {str(order): h for order, h in hubbard.items()},
         "config4": config4, "gv_sigma6": gv_report["sigma6"],
         "gamma4": {str(order): rep for order, rep in g4_report.items()},
-        "gamma4_past_2_31": g4_big}] + [{
+        "gamma4_past_2_31": g4_big,
+        "jit": {"paths_captured": sorted(jit_report), "cases": jit_report}}] + [{
             "name": f"probe_{name}", "route": "cuda",
             "source": "feynmandiagram_tpu_torch/csrc/row_probes.cu",
             "replaces": f"benchmarks/probe_mosaic_caps.py:{PROBE_LINE[name]}",

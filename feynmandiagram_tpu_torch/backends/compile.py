@@ -3,8 +3,10 @@
 Port of ``feynmandiagram_tpu/backends/compile.py``: ``compile_evaluator``
 lowers the roots and chains the leaf phase (LoopPool product, G and V
 physics) with the graph phase (level-by-level evaluation, buckets through
-the CUDA kernel) over a batch of Monte-Carlo samples.  PyTorch runs
-eagerly, so there is no ``jit``; the reference's TPU ``layout`` is gone.
+the CUDA kernel) over a batch of Monte-Carlo samples.  The reference jits
+that chain into one device program (``jit=True``, its default); here
+``jit=True`` replays it as one captured CUDA graph (``ops.graphs``), and the
+default stays eager.  The reference's TPU ``layout`` is gone.
 
 The artifact functions read and write the JAX package's ``.npz`` format
 (``ARTIFACT_VERSION = 2``), so a graph generated and lowered by either
@@ -12,6 +14,7 @@ package evaluates in the other.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Sequence
@@ -24,6 +27,7 @@ from ..ops.lowering import (FusedBucket, LevelPlan, LoweredGraph, PowerPlan,
                             ProdPlan, SumBucket, SumPlan, lower)
 from ..ops.dtypes import default_device, default_dtype
 from ..ops.evaluator import make_evaluator
+from ..ops.graphs import Captured, require_cuda
 from ..ops.leaf_eval import LeafTables, leaf_tables_from_lowered, make_leaf_evaluator
 
 
@@ -50,7 +54,11 @@ def leaf_graphs_of(roots: Sequence[Graph]) -> Dict[int, Graph]:
 
 @dataclass
 class CompiledEvaluator:
-    """The whole pipeline: (varK, varT) -> root weights [R, batch]."""
+    """The whole pipeline: (varK, varT) -> root weights [R, batch].
+
+    ``leaf_fn`` and ``graph_fn`` are the two phases, run eagerly (scripts
+    time them apart); ``fn`` is the chain, captured where it was compiled
+    with ``jit=True``."""
     lowered: LoweredGraph
     tables: LeafTables
     fn: Callable
@@ -61,6 +69,42 @@ class CompiledEvaluator:
     def __call__(self, varK, varT) -> torch.Tensor:
         return self.fn(varK, varT)
 
+    def static_pass(self, batch: int) -> Callable:
+        """The whole pass on buffers of one batch size allocated here, for a
+        CUDA graph to capture (``mc.mc_run(jit=True)`` captures around it):
+        a function of ``(varK, varT)``, tensors on the device, that writes
+        the leaf phase into the leaf rows of a ``StaticPass``'s weight
+        buffer, runs the graph phase there and returns the static roots
+        ``[R, batch]``, allocating nothing outside a graph's pool and never
+        waiting for the host.  ``graph_fn`` must be an eager
+        ``ops.evaluator.Evaluator``."""
+        sp = self.graph_fn.static_pass(batch)
+
+        def body(varK, varT) -> torch.Tensor:
+            self.leaf_fn(varK, varT, out=sp.leaves)
+            return sp.run()
+
+        return body
+
+    def jitted(self) -> "CompiledEvaluator":
+        """A copy whose ``fn`` is captured, what ``compile_evaluator(jit=True)``
+        returns: it copies ``varK`` and ``varT`` into static inputs, replays
+        ``static_pass`` as one CUDA graph, captured at the first call of
+        each input shape (one at a time: a new shape frees the old graph and
+        buffers), and returns a fresh tensor of the roots.  ``ValueError``
+        off CUDA."""
+        device = self.graph_fn.device
+        require_cuda(device, "compile_evaluator")
+
+        def prepare(varK, varT):
+            static = [torch.empty_like(varK), torch.empty_like(varT)]
+            body = self.static_pass(varK.shape[-1])
+            return static, lambda: body(*static)
+
+        captured = Captured(prepare)
+        return dataclasses.replace(self, fn=lambda varK, varT: captured(
+            torch.as_tensor(varK, device=device), torch.as_tensor(varT, device=device)))
+
 
 def compile_evaluator(roots: Sequence[Graph], *, max_loop_num: int,
                       beta: float, kF: float, lam: float, device=None, dtype=None,
@@ -68,7 +112,8 @@ def compile_evaluator(roots: Sequence[Graph], *, max_loop_num: int,
                       sum_mode: str = "fused", merge_threshold: int = 0,
                       acc_dtype=None, cse: bool = True,
                       compensated: bool = False,
-                      chunk_rows: Optional[int] = None) -> CompiledEvaluator:
+                      chunk_rows: Optional[int] = None,
+                      jit: bool = False) -> CompiledEvaluator:
     """Lower ``roots`` and build the batched evaluator on ``device``.
 
     - ``varK``: [dim, max_loop_num, batch] loop-momentum samples
@@ -77,9 +122,18 @@ def compile_evaluator(roots: Sequence[Graph], *, max_loop_num: int,
     - ``dtype``: default float32 on CUDA, float64 on the CPU
     - ``sum_mode``: lowering strategy (see ``ops.lowering.lower``)
     - ``acc_dtype``: widened accumulation dtype of the graph phase
+    - ``jit``: the counterpart of the JAX package's ``jit=True`` (its
+      default): ``fn`` copies ``varK`` and ``varT`` into static inputs and
+      replays the leaf and graph phases as one CUDA graph, captured at the
+      first call of each input shape (one at a time), and returns a fresh
+      tensor of the roots.  It needs a CUDA ``device`` (``ValueError``
+      otherwise).  The default stays eager: on the CPU there is no graph,
+      and the launch counters and the profiler's scopes read eager passes.
     """
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)
+    if jit:
+        require_cuda(device, "compile_evaluator")
     leafmap = leafmap_of(roots)
     lowered = lower(roots, leafmap, sum_mode=sum_mode,
                     merge_threshold=merge_threshold, cse=cse)
@@ -94,7 +148,8 @@ def compile_evaluator(roots: Sequence[Graph], *, max_loop_num: int,
     def fn(varK, varT) -> torch.Tensor:
         return graph_fn(leaf_fn(varK, varT))
 
-    return CompiledEvaluator(lowered, tables, fn, leaf_fn, graph_fn, max_loop_num)
+    compiled = CompiledEvaluator(lowered, tables, fn, leaf_fn, graph_fn, max_loop_num)
+    return compiled.jitted() if jit else compiled
 
 
 # ---------------------------------------------------------------------------

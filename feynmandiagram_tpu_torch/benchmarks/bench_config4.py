@@ -21,8 +21,12 @@ card's name and power limit as ``nvidia-smi`` gives them, and
 ``host_gen_ad_s`` also counts the lowering and the tables' upload
 (``build_config4``), which the reference's figure leaves out.
 
+``--jit`` compiles with ``jit=True`` and measures the captured loop
+(``mc_samples_per_s(jit=True)``): one CUDA graph a pass, the counterpart of
+the reference's jitted ``fori_loop``; it needs the card.
+
 Usage: python -m feynmandiagram_tpu_torch.benchmarks.bench_config4
-           [batch] [iters] [--device cpu]
+           [batch] [iters] [--device cpu] [--jit]
 """
 from __future__ import annotations
 
@@ -65,9 +69,11 @@ def config4_roots(order: int = 4):
     return all_roots, para, root_orders
 
 
-def build_config4(order: int = 4, *, device=None, dtype=None, sum_mode: str = "fused"):
+def build_config4(order: int = 4, *, device=None, dtype=None, sum_mode: str = "fused",
+                  jit: bool = False):
     """Generate config 4 (``config4_roots``) and compile it on ``device``
-    (default: the CUDA card; ``RuntimeError`` without one):
+    (default: the CUDA card; ``RuntimeError`` without one), captured where
+    ``jit`` (``compile_evaluator``'s):
     ``(compiled, para, root_orders)``, the ``CompiledEvaluator``, the
     diagram parameters (``totalLoopNum``, ``totalTauNum``) and each root's
     (G order, V order)."""
@@ -76,7 +82,7 @@ def build_config4(order: int = 4, *, device=None, dtype=None, sum_mode: str = "f
     roots, para, root_orders = config4_roots(order)
     compiled = compile_evaluator(roots, max_loop_num=para.totalLoopNum, beta=BETA,
                                  kF=KF, lam=LAM, device=device, dtype=dtype,
-                                 sum_mode=sum_mode)
+                                 sum_mode=sum_mode, jit=jit)
     return compiled, para, root_orders
 
 
@@ -90,18 +96,20 @@ def main(argv=None) -> dict:
     parser.add_argument("iters", nargs="?", type=int, default=ITERS)
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card; 'cpu' on purpose)")
+    parser.add_argument("--jit", action="store_true",
+                        help="run the pass as a captured CUDA graph (needs the card)")
     args = parser.parse_args(argv)
     device = torch.device(args.device) if args.device is not None else default_device()
     dtype = default_dtype(device)
 
     t0 = time.perf_counter()
-    compiled, para, _ = build_config4(device=device, dtype=dtype)
+    compiled, para, _ = build_config4(device=device, dtype=dtype, jit=args.jit)
     t_host = time.perf_counter() - t0
     low = compiled.lowered
-    sps = mc_samples_per_s(compiled.fn, n_loop=para.totalLoopNum,
+    sps = mc_samples_per_s(compiled, n_loop=para.totalLoopNum,
                            num_tau=para.totalTauNum, batch=args.batch,
                            n_roots=len(low.root_slots), device=device, dtype=dtype,
-                           iters=args.iters, beta=BETA)
+                           iters=args.iters, beta=BETA, jit=args.jit)
     result = {
         "metric": "mc_samples_per_s_config4_sigma_ct22",
         "value": round(sps, 1),
@@ -109,7 +117,7 @@ def main(argv=None) -> dict:
         "extra": {
             "host_gen_ad_s": round(t_host, 2),
             "edges_per_s": round(low.num_edges * sps, 0),
-            "batch": args.batch, "iters": args.iters,
+            "batch": args.batch, "iters": args.iters, "jit": args.jit,
             "recommended_batch": None,
             "num_roots": len(low.root_slots),
             "num_slots": low.num_slots, "num_edges": low.num_edges,

@@ -18,9 +18,10 @@ momenta produced by the parquet builder are simply ignored by the leaf rules
 
 The graph is lowered with ``sum_mode="bucketed"``: its sums run through the
 gather-reduce kernel, one launch per level that holds buckets, and its
-products as plain PyTorch (XLA ops in the reference).  The evaluator runs
-eagerly; the reference's ``jax.jit`` of the whole function has no
-counterpart yet.
+products as plain PyTorch (XLA ops in the reference).  The reference
+jits the whole function; here ``build_sigma_evaluator(jit=True)`` replays it
+as one CUDA graph (``ops.graphs``), ``U`` a 0-dim static tensor that each
+call fills, and the default stays eager.
 """
 from __future__ import annotations
 
@@ -70,6 +71,9 @@ class HubbardSigma:
     order: int
     num_tau: int           # totalTauNum: varT rows (varT[0] pinned to 0)
     fn: Callable           # (varT[num_tau, batch], U) -> [2, batch] (re, im)
+    # batch -> the same function of (varT, U) tensors on the device (U 0-dim)
+    # on static buffers of that batch, which a CUDA graph captures
+    static_pass: Callable
 
 
 def lower_sigma(order: int):
@@ -102,7 +106,7 @@ def lower_sigma(order: int):
 
 def build_sigma_evaluator(order: int, beta: float, *, mu: float = 0.0,
                           matsubara_n: int = 0, device=None, dtype=None,
-                          kernel: bool = True) -> HubbardSigma:
+                          kernel: bool = True, jit: bool = False) -> HubbardSigma:
     """Build the order-``order`` sigma diagrams into one function
     (varT, U) -> per-sample Sigma integrand (phase included), real and
     imaginary parts as rows of a ``[2, batch]`` tensor on ``device``.
@@ -111,11 +115,20 @@ def build_sigma_evaluator(order: int, beta: float, *, mu: float = 0.0,
     ``dtype`` follows the device as in ``make_evaluator``.  The index tables
     are uploaded here, once.  ``kernel=False`` runs the graph's sums through
     the kernel's plain version on any device: the reference the kernel is
-    checked against."""
+    checked against.
+
+    ``jit=True``, the counterpart of the reference's ``jax.jit``: ``fn``
+    copies ``varT`` and fills ``U`` into static inputs and replays the leaf
+    rules, the graph phase and the Matsubara phase as one CUDA graph,
+    captured at the first call of each batch size; it returns a fresh
+    tensor and needs a CUDA ``device`` (``ValueError`` otherwise)."""
     from ..ops.evaluator import make_evaluator
+    from ..ops.graphs import Captured, require_cuda
 
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)
+    if jit:
+        require_cuda(device, "build_sigma_evaluator")
     para, lowered, tables, ext_ts = lower_sigma(order)
     if (tables.g_order != 0).any() or (tables.v_order != 0).any():
         raise AssertionError("Hubbard oracle has no counterterm leaves")
@@ -137,22 +150,50 @@ def build_sigma_evaluator(order: int, beta: float, *, mu: float = 0.0,
     num_leaves = lowered.num_leaves - len(lowered.const_slots)
     eps = torch.tensor(-mu, dtype=dtype, device=device)
 
-    def fn(varT, U):
+    def leaf_rules(leaf, varT, U) -> None:
+        leaf[g_idx] = green_kernel(varT[g_tout] - varT[g_tin], eps, beta)
+        leaf[v_idx] = U
+
+    def matsubara(w, varT) -> torch.Tensor:
         # no complex dtype (as in the reference, which kept complex out of
         # the TPU's graph): the Matsubara phase is applied as real cos/sin
         # channels
-        varT = torch.as_tensor(varT, device=device).to(dtype)
-        batch = varT.shape[-1]
-        leaf = torch.ones((num_leaves, batch), dtype=dtype, device=device)
-        leaf[g_idx] = green_kernel(varT[g_tout] - varT[g_tin], eps, beta)
-        leaf[v_idx] = U
-        w = graph_fn(leaf)                               # [R, batch] real
         dt = varT[root_tout] - varT[root_tin]            # [R, batch]
         re = torch.sum(w * torch.cos(omega * dt), dim=0)
         im = torch.sum(w * torch.sin(omega * dt), dim=0)
         return torch.stack([re, im])                     # [2, batch]
 
-    return HubbardSigma(order, para.totalTauNum, fn)
+    def fn(varT, U):
+        varT = torch.as_tensor(varT, device=device).to(dtype)
+        leaf = torch.ones((num_leaves, varT.shape[-1]), dtype=dtype, device=device)
+        leaf_rules(leaf, varT, U)
+        return matsubara(graph_fn(leaf), varT)           # graph_fn: [R, batch] real
+
+    def static_pass(batch: int) -> Callable:
+        if len(g_idx) + len(v_idx) != num_leaves:
+            raise AssertionError("every leaf of the Hubbard oracle is a G or a V")
+        sp = graph_fn.static_pass(batch)
+
+        def body(varT, U) -> torch.Tensor:
+            leaf_rules(sp.leaves, varT, U)
+            return matsubara(sp.run(), varT)
+
+        return body
+
+    if not jit:
+        return HubbardSigma(order, para.totalTauNum, fn, static_pass)
+
+    def prepare(varT, U):
+        static = [torch.empty_like(varT), torch.empty((), dtype=dtype, device=device)]
+        body = static_pass(varT.shape[-1])
+        return static, lambda: body(*static)
+
+    captured = Captured(prepare)
+
+    def captured_fn(varT, U):
+        return captured(torch.as_tensor(varT, device=device).to(dtype), float(U))
+
+    return HubbardSigma(order, para.totalTauNum, captured_fn, static_pass)
 
 
 def _chunk_seed(seed: int, chunk: int) -> int:
@@ -162,7 +203,8 @@ def _chunk_seed(seed: int, chunk: int) -> int:
 
 def sigma_mc(order: int, U: float, beta: float, *, mu: float = 0.0,
              matsubara_n: int = 0, batch: int = 8192, chunks: int = 32,
-             seed: int = 0, device=None, dtype=None) -> Tuple[complex, complex]:
+             seed: int = 0, device=None, dtype=None,
+             jit: bool = False) -> Tuple[complex, complex]:
     """Uniform-tau Monte-Carlo estimate of Sigma^(order)(i*omega_n).
 
     varT[0] is pinned to 0 (hubbard.jl:76-78); the remaining num_tau-1
@@ -170,12 +212,15 @@ def sigma_mc(order: int, U: float, beta: float, *, mu: float = 0.0,
     ``torch.Generator`` seeded from ``seed`` and the chunk, so the integral
     is beta^(num_tau-1) * mean(integrand).  Returns (mean, stderr) with
     stderr reported per real/imag component.  The draws differ from the
-    reference's ``jax.random`` ones for the same seed.
+    reference's ``jax.random`` ones for the same seed.  ``jit=True``
+    evaluates each chunk through the captured function
+    (``build_sigma_evaluator(jit=True)``); the means are read on the host,
+    outside the graph.
     """
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)
     hs = build_sigma_evaluator(order, beta, mu=mu, matsubara_n=matsubara_n,
-                               device=device, dtype=dtype)
+                               device=device, dtype=dtype, jit=jit)
     nfree = hs.num_tau - 1
     vol = beta ** nfree
     gen = torch.Generator(device=device)

@@ -26,6 +26,11 @@ earlier level, and a node reads only lower levels.  It is also why a
 level's buckets may run at once.  ``make_evaluator`` checks it once, with
 the bounds of every index (the reference relies on ``promise_in_bounds``;
 the kernel has no clamp).
+
+The JAX package jits the evaluator by default (``make_evaluator(jit=True)``);
+here ``jit=True`` replays a ``StaticPass``, the same pass on buffers
+allocated once, as a CUDA graph (``ops.graphs``), and the default stays
+eager.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import torch
 
 from .lowering import LoweredGraph, lower
 from .dtypes import default_device, default_dtype
+from .graphs import Captured, require_cuda
 from ..utils.profiling import scope
 from .kernels import (LevelTables, cuda_type_codes, level_gather_reduce,
                       level_gather_reduce_plain, pack_level)
@@ -101,6 +107,38 @@ def check_lowered(lowered: LoweredGraph) -> None:
                                  f"writes")
 
 
+def unwritten_reads(lowered: LoweredGraph):
+    """The rows that a pass reads before it writes them, as two int64
+    arrays: those that no plan of the pass writes (a static buffer zeroes
+    them once), and those that a later plan writes (zeroed before every
+    pass).  A pass writes the leaf and constant rows first, then each
+    level's plans; a level reads only rows of earlier writes
+    (``check_lowered``), and the roots are read at the end.  Padding terms
+    read the leaf row 0 or a constant slot, and padded bucket rows are
+    written by the kernel, so on the lowerings of this package both arrays
+    are empty."""
+    n = lowered.num_slots
+    written = np.zeros(n, bool)
+    written[:lowered.num_leaves] = True
+    unread = np.zeros(n, bool)      # read before any write of the pass
+    later = np.zeros(n, bool)       # ... and written afterwards
+    for lvl in lowered.levels:
+        plans = ([(lvl.sums.start, lvl.sums.count, lvl.sums.edge_src)]
+                 if lvl.sums is not None else [])
+        plans += [(b.start, b.count, b.idx) for b in list(lvl.sum_buckets) + list(lvl.fused)]
+        plans += [(p.start, p.count, p.idx) for p in lvl.prods]
+        plans += [(pw.start, pw.count, pw.src) for pw in lvl.pows]
+        for _, _, read in plans:
+            read = np.asarray(read, np.int64).ravel()
+            unread[read[~written[read]]] = True
+        for start, count, _ in plans:
+            later[start:start + count] |= unread[start:start + count]
+            written[start:start + count] = True
+    roots = np.asarray(lowered.root_slots, np.int64)
+    unread[roots[~written[roots]]] = True
+    return np.flatnonzero(unread & ~later), np.flatnonzero(later)
+
+
 def _upload(lowered: LoweredGraph, device, fac_dtype) -> List[_Level]:
     def i64(a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a, np.int64), device=device)
@@ -163,10 +201,93 @@ def _eval_levels(levels: List[_Level], w: torch.Tensor, acc_dtype=None,
     return w
 
 
+class StaticPass:
+    """The graph pass at one batch size on buffers allocated once: what a
+    CUDA graph captures (``ops.graphs``).
+
+    ``w`` is the weight buffer ``[num_slots, batch]``, ``leaves`` its leaf
+    rows (a view, which the caller or the leaf phase fills before each
+    ``run``) and ``roots`` the roots' output.  Only the rows that a pass
+    reads before it writes them (``unwritten_reads``) are zeroed, once,
+    here.  The constant rows are written by every ``run``, as by the eager
+    pass: no plan of this package's lowerings takes a constant's slot, but
+    nothing in a lowering forbids it.  ``run()`` does the pass in place and
+    returns ``roots``: it allocates nothing outside a graph's pool and never
+    waits for the host."""
+
+    def __init__(self, ev: "Evaluator", batch: int):
+        self._ev = ev
+        self.w = torch.empty((ev.num_slots, batch), dtype=ev.dtype, device=ev.device)
+        self.w[ev.zero_rows] = 0
+        self.leaves = self.w[:ev.nl_input]
+        self.roots = torch.empty((len(ev.root_slots), batch), dtype=ev.acc_dtype or ev.dtype,
+                                 device=ev.device)
+
+    def run(self) -> torch.Tensor:
+        ev = self._ev
+        if ev.rezero_rows is not None:
+            self.w[ev.rezero_rows] = 0
+        if ev.n_const:
+            self.w[ev.nl_input:ev.nl_input + ev.n_const] = ev.const_values[:, None]
+        _eval_levels(ev.levels, self.w, ev.acc_dtype, ev.compensated, ev.chunk_rows, ev.kernel)
+        self.roots.copy_(self.w[ev.root_slots])
+        return self.roots
+
+
+class Evaluator:
+    """``f(leaf_values[num_leaves, batch]) -> roots[num_roots, batch]``, run
+    eagerly; ``static_pass(batch)`` gives the same pass on static buffers
+    (``make_evaluator`` has the arguments)."""
+
+    def __init__(self, lowered: LoweredGraph, device: torch.device, dtype, return_all: bool,
+                 acc_dtype, compensated: bool, chunk_rows: Optional[int], kernel: bool):
+        check_lowered(lowered)
+        self.device, self.dtype, self.acc_dtype = device, dtype, acc_dtype
+        self.return_all, self.compensated = return_all, compensated
+        self.chunk_rows, self.kernel = chunk_rows, kernel
+        self.num_slots = lowered.num_slots
+        self.n_const = len(lowered.const_slots)
+        self.nl_input = lowered.num_leaves - self.n_const
+        self.const_values = torch.as_tensor(np.asarray(lowered.const_values),
+                                            device=device).to(dtype)
+        self.root_slots = torch.as_tensor(np.asarray(lowered.root_slots, np.int64),
+                                          device=device)
+        zero, rezero = unwritten_reads(lowered)
+        self.zero_rows = torch.as_tensor(zero, device=device)
+        self.rezero_rows = torch.as_tensor(rezero, device=device) if rezero.size else None
+        self.levels = _upload(lowered, device, acc_dtype or dtype)
+
+    def leaf_input(self, leaf_values) -> torch.Tensor:
+        """``leaf_values`` as a ``[rows, batch]`` tensor of the storage type
+        on the device."""
+        leaf_values = torch.as_tensor(leaf_values, device=self.device).to(self.dtype)
+        return leaf_values[:, None] if leaf_values.dim() == 1 else leaf_values
+
+    def __call__(self, leaf_values) -> torch.Tensor:
+        leaf_values = self.leaf_input(leaf_values)
+        batch = leaf_values.shape[1]
+        # zero-initialised: padding terms carry fac = 0, and 0 * NaN from
+        # uninitialised rows would poison their sums
+        w = torch.zeros((self.num_slots, batch), dtype=self.dtype, device=self.device)
+        w[:len(leaf_values)] = leaf_values
+        if self.n_const:
+            w[self.nl_input:self.nl_input + self.n_const] = self.const_values[:, None]
+        _eval_levels(self.levels, w, self.acc_dtype, self.compensated, self.chunk_rows,
+                     self.kernel)
+        if self.return_all:
+            return w
+        out = w[self.root_slots]
+        return out.to(self.acc_dtype) if self.acc_dtype is not None else out
+
+    def static_pass(self, batch: int) -> StaticPass:
+        """A new ``StaticPass`` of this evaluator at ``batch``."""
+        return StaticPass(self, batch)
+
+
 def make_evaluator(lowered: LoweredGraph, *, device=None, dtype=None,
                    return_all: bool = False, acc_dtype=None,
                    compensated: bool = False, chunk_rows: Optional[int] = None,
-                   kernel: bool = True):
+                   kernel: bool = True, jit: bool = False):
     """Build ``f(leaf_values[num_leaves, batch]) -> roots[num_roots, batch]``.
 
     ``leaf_values`` covers the non-constant leaf slots (0..nl-1); constant
@@ -178,36 +299,44 @@ def make_evaluator(lowered: LoweredGraph, *, device=None, dtype=None,
     accumulation types (``torch.bfloat16`` with ``torch.float32`` is the JAX
     package's half-width buffer); the CUDA kernel takes the pairs of
     ``kernels.CUDA_DTYPE_PAIRS`` and raises here on any other.
+
+    ``jit=True``, the counterpart of the JAX function's default, returns a
+    function that copies ``leaf_values`` (all ``nl`` rows) into the leaf
+    rows of a ``StaticPass``, replays the pass as a CUDA graph captured at
+    the first call of each batch size, and returns a fresh tensor of the
+    roots.  It holds one batch size at a time: a new one frees the old
+    graph and buffers.  It needs a CUDA ``device`` (``ValueError``
+    otherwise) and runs no ``return_all``.  The default stays eager: on the
+    CPU there is no graph, and the launch counters and the profiler's
+    scopes read eager passes.
     """
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)
     a = acc_dtype or dtype
+    if jit:
+        require_cuda(device, "make_evaluator")
+        if return_all:
+            raise ValueError("make_evaluator(jit=True) returns the roots: return_all=True "
+                             "runs eagerly")
     if kernel and device.type == "cuda":
         cuda_type_codes(dtype, a, acc_dtype)
-    check_lowered(lowered)
-    num_slots = lowered.num_slots
-    n_const = len(lowered.const_slots)
-    nl_input = lowered.num_leaves - n_const
-    const_values = torch.as_tensor(np.asarray(lowered.const_values), device=device).to(dtype)
-    root_slots = torch.as_tensor(np.asarray(lowered.root_slots, np.int64), device=device)
-    levels = _upload(lowered, device, a)
+    ev = Evaluator(lowered, device, dtype, return_all, acc_dtype, compensated, chunk_rows,
+                   kernel)
+    if not jit:
+        return ev
+
+    def prepare(leaf_values):
+        sp = ev.static_pass(leaf_values.shape[1])
+        return [sp.leaves], sp.run
+
+    captured = Captured(prepare)
 
     def evaluate(leaf_values) -> torch.Tensor:
-        leaf_values = torch.as_tensor(leaf_values, device=device).to(dtype)
-        if leaf_values.dim() == 1:
-            leaf_values = leaf_values[:, None]
-        batch = leaf_values.shape[1]
-        # zero-initialised: padding terms carry fac = 0, and 0 * NaN from
-        # uninitialised rows would poison their sums
-        w = torch.zeros((num_slots, batch), dtype=dtype, device=device)
-        w[:len(leaf_values)] = leaf_values
-        if n_const:
-            w[nl_input:nl_input + n_const] = const_values[:, None]
-        _eval_levels(levels, w, acc_dtype, compensated, chunk_rows, kernel)
-        if return_all:
-            return w
-        out = w[root_slots]
-        return out.to(acc_dtype) if acc_dtype is not None else out
+        leaf_values = ev.leaf_input(leaf_values)
+        if leaf_values.shape[0] != ev.nl_input:
+            raise ValueError(f"jit=True takes all {ev.nl_input} leaf rows, got "
+                             f"{leaf_values.shape[0]}")
+        return captured(leaf_values)
 
     return evaluate
 

@@ -1,0 +1,93 @@
+"""CUDA graphs: the port's counterpart of the JAX package's ``jax.jit``.
+
+The JAX package compiles a whole pass into one device program
+(``jax.jit``).  On CUDA the counterpart is a ``torch.cuda.CUDAGraph``
+captured from a body that allocates nothing outside the graph's memory pool
+and never waits for the host: the static passes of ``ops.evaluator`` and
+``backends.compile``.  A replay runs no Python, so the kernels' launch
+counters (``level_gather_reduce.launches``) and the profiler's scopes see
+the capture only, never a replay.
+
+``capture`` warms a body up and captures it; ``Captured`` replays one at
+the shapes of its last call and re-captures when they change.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Sequence, Tuple
+
+import torch
+
+
+def require_cuda(device: torch.device, what: str) -> None:
+    """Raise ``ValueError`` unless ``device`` is a CUDA device: a captured
+    pass has no counterpart elsewhere, and nothing runs eagerly in its
+    place."""
+    if device.type != "cuda":
+        raise ValueError(f"{what}(jit=True) captures a CUDA graph and needs a CUDA device, "
+                         f"not {device}")
+
+
+def capture(body: Callable[[], torch.Tensor],
+            generators: Sequence[torch.Generator] = ()) -> Tuple[torch.cuda.CUDAGraph,
+                                                                 torch.Tensor]:
+    """Run ``body`` once on a side stream, then capture a second run as one
+    CUDA graph; return the graph and what the captured run returned, whose
+    memory each replay overwrites.
+
+    The first run builds what is built at first use (the kernels' library,
+    cuBLAS's workspace, lazily loaded modules), which capture forbids.
+    ``generators`` are registered with the graph, so that each replay draws
+    from each one's state at replay time and moves it on."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        out = body()
+    return graph, out
+
+
+def _load(static: torch.Tensor, value) -> None:
+    if isinstance(value, torch.Tensor):
+        static.copy_(value)
+    else:
+        static.fill_(value)     # a number: a kernel argument, no copy from the host
+
+
+class Captured:
+    """``f(*inputs) -> a fresh tensor``, replayed from one CUDA graph.
+
+    ``prepare(*inputs)`` returns the static inputs (tensors on the card, one
+    for each input: a tensor is copied in, a number filled in) and the body,
+    a function of no arguments that reads only those and returns the output.
+    At the first call, and whenever an input's shape or dtype changes, the
+    previous graph and its buffers are dropped and ``prepare`` builds new
+    ones, which ``capture`` captures: one input signature is held at a
+    time.  Each call loads the inputs, replays, and returns a copy of the
+    output, so that no later call overwrites a result (the JAX semantics).
+    """
+
+    def __init__(self, prepare: Callable[..., Tuple[List[torch.Tensor], Callable]]):
+        self._prepare = prepare
+        self._key = None
+        self._state = None      # (static inputs, graph, output)
+
+    def __call__(self, *inputs) -> torch.Tensor:
+        key = tuple((tuple(x.shape), x.dtype, x.device) if isinstance(x, torch.Tensor)
+                    else type(x) for x in inputs)
+        if key != self._key:
+            self._key = self._state = None      # frees the old graph and buffers first
+            static, body = self._prepare(*inputs)
+            for s, x in zip(static, inputs):
+                _load(s, x)
+            graph, out = capture(body)
+            self._state, self._key = (static, graph, out), key
+        static, graph, out = self._state
+        for s, x in zip(static, inputs):
+            _load(s, x)
+        graph.replay()
+        return out.clone()

@@ -10,8 +10,9 @@ runs, per call:
    ``eps = q2 - kF^2`` and ``softplus(-beta*eps)`` per basis row and
    ``tau = varT[out] - varT[in]`` per pair of times;
 2. one vectorized physics call per (leaf type, derivative order) group,
-   scattered into a ``[num_leaves, batch]`` buffer initialised to ones: a
-   bare propagator (order 0) is ``sign * exp(-eps*tau1 - softplus)`` of
+   scattered into a ``[num_leaves, batch]`` buffer (new, or the one the
+   caller hands over), every row of which is written; a row of no group
+   holds 1.  A bare propagator (order 0) is ``sign * exp(-eps*tau1 - softplus)`` of
    rows gathered from step 1 (``models.free_fermion.green_tau_parts``).
 
 Both steps compute in ``compute_dtype``, float64 by default whatever the
@@ -132,10 +133,15 @@ def leaf_tables_from_lowered(lowered, leaf_graphs: Dict[int, "Graph"],
 def make_leaf_evaluator(tables: LeafTables, *, beta: float, kF: float, lam: float,
                         device=None, dtype=None, compute_dtype=torch.float64,
                         interaction_convention: str = "lambda_power"):
-    """Build ``f(varK, varT) -> leaf_values[num_leaves, batch]``.
+    """Build ``f(varK, varT, out=None) -> leaf_values[num_leaves, batch]``.
 
     - ``varK``: [dim, max_loop_num, batch] sampled loop momenta
     - ``varT``: [num_tau, batch] sampled imaginary times
+    - ``out``: where to write the values, a ``[num_leaves, batch]`` tensor of
+      ``dtype`` on ``device`` (the leaf rows of a static weight buffer,
+      ``ops.evaluator.StaticPass.leaves``); a new tensor if ``None``.  Every
+      row is written, and the function allocates nothing else outside the
+      phase's temporaries, so a CUDA graph can capture it.
 
     The values are computed in ``compute_dtype`` and rounded once to
     ``dtype``; ``compute_dtype=dtype`` computes in the storage type, as the
@@ -164,8 +170,11 @@ def make_leaf_evaluator(tables: LeafTables, *, beta: float, kF: float, lam: floa
             idx = np.where(mask & (orders == o))[0]
             groups.append((t, int(o), dev(idx), dev(tables.loop_idx[idx]), dev(pair_idx[idx]),
                            f"leaf{'G' if t == 1 else 'V'}{o}"))
+    # rows of no group (a leaf type other than 1 or 2) hold 1
+    other = np.flatnonzero(~np.isin(tables.leaf_type, (1, 2)))
+    other_idx = dev(other) if other.size else None
 
-    def evaluate(varK, varT) -> torch.Tensor:
+    def evaluate(varK, varT, out=None) -> torch.Tensor:
         varK = torch.as_tensor(varK, dtype=compute_dtype, device=device)
         varT = torch.as_tensor(varT, dtype=compute_dtype, device=device)
         batch = varK.shape[-1]
@@ -178,7 +187,13 @@ def make_leaf_evaluator(tables: LeafTables, *, beta: float, kF: float, lam: floa
                 sp = green_eps_part(eps, beta)                  # [n_basis, batch]
                 tau = varT[pair_out] - varT[pair_in]            # [n_pairs, batch]
                 sign, tau1 = green_tau_parts(tau, beta)
-        out = torch.ones((tables.num_leaves, batch), dtype=dtype, device=device)
+        if out is None:
+            out = torch.empty((tables.num_leaves, batch), dtype=dtype, device=device)
+        elif out.shape != (tables.num_leaves, batch) or out.dtype != dtype:
+            raise ValueError(f"out is {out.dtype} {tuple(out.shape)}, expected {dtype} "
+                             f"{(tables.num_leaves, batch)}")
+        if other_idx is not None:
+            out[other_idx] = 1
         for t, order, gidx, lidx, pidx, name in groups:
             with scope(name):
                 if t == 1 and order == 0:

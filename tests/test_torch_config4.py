@@ -133,11 +133,11 @@ def test_bench_config4_main_on_cpu(capsys):
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out
     extra = out["extra"]
     assert out["metric"] == "mc_samples_per_s_config4_sigma_ct22" and out["value"] > 0
-    assert set(extra) == {"host_gen_ad_s", "edges_per_s", "batch", "iters",
+    assert set(extra) == {"host_gen_ad_s", "edges_per_s", "batch", "iters", "jit",
                           "recommended_batch", "num_roots", "num_slots", "num_edges",
                           "num_levels", "platform"}
     assert (extra["num_roots"], extra["num_slots"], extra["num_levels"]) == (36, 7160, 37)
-    assert (extra["batch"], extra["iters"], extra["platform"]) == (8, 1, "cpu")
+    assert (extra["batch"], extra["iters"], extra["jit"], extra["platform"]) == (8, 1, False, "cpu")
 
 
 def test_build_config4_raises_without_cuda():
