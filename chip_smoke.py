@@ -169,7 +169,26 @@ output line or more each:
    65,536 through ``build_sigma_evaluator(jit=True)``, two U through one
    captured evaluator against two eager calls, ``sigma_mc(jit=True)``
    against the closed-form series, and the same clocks.  Each graph is
-   freed before the next case; a failed capture or replay fails the run.
+   freed before the next case; a failed capture or replay fails the run;
+12. the sharded passes captured (``jit sharded:``, ``jit shard time:``
+   lines): the order-4 Gamma4 graph-sharded pass, fused and bucketed,
+   through ``make_graph_sharded_evaluator(jit=True)`` on the local 4-rank
+   graph mesh at batch 4096 and 4097 and on a local 2 x 2 graph x batch
+   mesh at 4096 and 4098; ``shard_compiled(jit=True)`` and
+   ``make_mc_step(jit=True)`` on a local 4-rank sample mesh and on the
+   one-rank NCCL mesh, and the graph-sharded pass with its graph axis over
+   that NCCL group; config 5 at order 5, ``config5_serving.serve(jit=True)``
+   on the 4 x 2 mesh: each captured call (its first call, and a replay
+   after an eager call) bit for bit against the eager one, and eager and
+   captured clocks side by side (samples/s, wall, busy, idle, host ms, level
+   kernels a call by the profiler's names, the halo gathers' device time,
+   peak memory); ``benchmarks/scaling.py`` at order 3 on 1, 2 and 4 local
+   ranks, eager and captured in one table (``jit scaling:`` lines); then
+   ``benchmarks.probe_bucket_fusion.run()`` at the JAX
+   script's shapes (``probe_bucket_fusion:`` lines): the level kernel bit
+   for bit against its plain version in (f32, f32) and (bf16, f32), every
+   PyTorch formulation of the padded sum bucket against it, and each one's
+   device time beside its bound.
 
 Then the run's seconds, one JSON line on the ten kernels, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, and so
@@ -256,6 +275,13 @@ JIT_HOST_CALLS, JIT_SLEEP_CYCLES = 3, 2 ** 28
 # then reads up to a few tenths of a percent above its wall
 JIT_BUSY_SLACK = 0.02
 RAGGED_BATCH = 4097     # no multiple of 4: rows lose their 16-byte alignment
+# the jit sharded phase: the batches checked on the 2 x 2 graph x batch mesh
+# (4098: 2049 columns a batch rank, no multiple of 4), the sample axis's
+# batch a rank in its MC step, and the calls of a traced or timed run of the
+# config-5 step, whose eager step lasts ~0.1 s
+SHARD_2X2_BATCHES = (BATCH, BATCH + 2)
+SAMPLE_MC_BATCH = 1024
+C5_CALLS = 3
 M = 2 ** 20
 # (widest record in pieces, bytes a column group may touch): the kernel's
 # launch geometry, None for what the wrapper picks
@@ -855,7 +881,7 @@ def main() -> None:
 
     mesh_g = Mesh([("graph", N_GRAPH)], device=dev)
     leafmap = leafmap_of(roots)
-    sharded_runs = {}
+    sharded_runs, shard_keep = {}, {}
     for mode in ("fused", "bucketed"):
         t0 = time.perf_counter()
         low_s, sched = lower_sharded_best(roots, leafmap, N_GRAPH, sum_mode=mode)
@@ -911,6 +937,7 @@ def main() -> None:
             sharded_runs[mode, batch] = (sh, leaves, single, n_launch)
         if mode == "fused":
             fused_low, fused_tables = low_s, tables_s
+        shard_keep[mode] = low_s    # for the jit sharded phase
         del leaf64, plain64
 
     # the kernel against its plain version through src, every level of rank
@@ -2811,6 +2838,218 @@ def main() -> None:
         torch.cuda.empty_cache()
     phase("jit: Hubbard atom")
 
+    # -- 12. the sharded passes captured: jit=True on the parallel layer
+    from feynmandiagram_tpu_torch.benchmarks import probe_bucket_fusion
+
+    def halo_kernel(name):
+        """Whether a kernel of the profiler's is a row gather or a
+        concatenation, the halo exchange of a local mesh (and, bucketed,
+        the prod groups' reads of the halo), not the level kernel."""
+        return ("gather_reduce" not in name
+                and any(k in name for k in ("index", "gather", "Cat")))
+
+    def shard_clocks(fn, n, queued, host_calls):
+        """pass_clocks of a sharded call, with the device time of its halo
+        gathers (halo_kernel) from the same trace.  A trace whose level
+        kernels a call are no whole number lost kernels (late in this
+        script the profiler drops a few: 518 of 520 in every trace of one
+        case, where a fresh process counts 520) and is taken again, up to
+        TRACE_TRIES times.  queued_ms only where queued: an eager MC step
+        enqueues more launches than the queue holds while the device
+        sleeps."""
+        for tries in range(1, TRACE_TRIES + 1):
+            by_kernel, n_level = profile_calls(fn, n)
+            if n_level == int(n_level):
+                break
+        return {"busy_ms": sum(by_kernel.values()), "level_kernels": n_level, "traces": tries,
+                "halo_ms": sum(t for k, t in by_kernel.items() if halo_kernel(k)),
+                "wall_ms": wall_ms(fn, n=2 * n), "queued_ms": queued_ms(fn) if queued else None,
+                "host_ms": host_ms(fn, n=host_calls)}
+
+    def shard_case(label, eager, captured, samples=None, n=10, queued=False,
+                   host_calls=JIT_HOST_CALLS):
+        """A captured sharded call against its eager one, both functions of
+        no arguments: the captured call's first run (capture and replay)
+        and a replay after an eager call (which reuses memory that a graph
+        must not have freed) bit for bit with eager; with samples (the
+        samples a call evaluates), eager and captured clocks side by side:
+        samples/s, wall, busy, idle, device with the host out of the way,
+        host ms a call, level kernels a call by the profiler's names (equal
+        both ways), the halo gathers' device time and peak allocated
+        memory."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        want = eager()
+        torch.cuda.synchronize()
+        mem_e = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = [captured()]
+        torch.cuda.synchronize()
+        mem_j = torch.cuda.max_memory_allocated()
+        eager()
+        got.append(captured())
+        torch.cuda.synchronize()
+        ok = all(g.shape == want.shape and torch.equal(g, want) for g in got)
+        print(f"jit sharded: {label}: captured (its first call, then a replay after an eager "
+              f"call) vs eager bit for bit: {ok}", flush=True)
+        if not ok:
+            fail(f"jit sharded {label}: the captured call left the eager one: max|diff| "
+                 f"{max((g - want).abs().max().item() for g in got):.3e}")
+        rep = {"bit_for_bit": ok}
+        if samples is None:
+            return rep
+        clocks = {"eager": shard_clocks(eager, n, queued, host_calls),
+                  "captured": shard_clocks(captured, n, queued, host_calls)}
+        for mode, m in clocks.items():
+            m["samples_per_s"] = samples / m["wall_ms"] * 1e3
+            m["idle"] = 1 - m["busy_ms"] / m["wall_ms"]
+            m["peak_gib"] = (mem_e if mode == "eager" else mem_j) / 2 ** 30
+        e, j = clocks["eager"], clocks["captured"]
+        print(f"jit shard time: {label}, {samples} samples a call, eager / captured: samples/s "
+              f"{e['samples_per_s']:.0f} / {j['samples_per_s']:.0f} "
+              f"({j['samples_per_s'] / e['samples_per_s']:.2f}x); a call: wall "
+              f"{e['wall_ms']:.4f} / {j['wall_ms']:.4f} ms, busy (profiler) {e['busy_ms']:.4f} / "
+              f"{j['busy_ms']:.4f} ms, idle {e['idle']:.3f} / {j['idle']:.3f}, "
+              + (f"queued_ms {fmt_ms(e['queued_ms'])} / {fmt_ms(j['queued_ms'])} ms, " if queued
+                 else "") + f"host "
+              f"{fmt_ms(e['host_ms'])} / {fmt_ms(j['host_ms'])} ms (captured: copy in, replay, "
+              f"copy out); level kernels a call by the profiler's names "
+              f"{e['level_kernels']:.1f} / {j['level_kernels']:.1f} (traces taken "
+              f"{e['traces']} / {j['traces']}); halo gathers (index and "
+              f"cat kernels) {e['halo_ms']:.4f} / {j['halo_ms']:.4f} ms; peak allocated "
+              f"{e['peak_gib']:.3f} / {j['peak_gib']:.3f} GiB  [{smi}]", flush=True)
+        # every call of fn launches the same kernels, so the true count a
+        # call is a whole number, at least the mean of a trace that lost some
+        if math.ceil(e["level_kernels"]) != math.ceil(j["level_kernels"]):
+            fail(f"jit sharded {label}: {j['level_kernels']} level kernels a replay, "
+                 f"{e['level_kernels']} eager")
+        if max(j["busy_ms"] / j["wall_ms"], e["busy_ms"] / e["wall_ms"]) > 1 + JIT_BUSY_SLACK:
+            fail(f"jit sharded {label}: device busy more than {JIT_BUSY_SLACK:g} above the wall "
+                 f"of the same call: a faulty clock reading")
+        rep.update({f"{mode}_{k}": v for mode, m in clocks.items() for k, v in m.items()})
+        return rep
+
+    def leaf_block(low_s, batch):
+        return torch.as_tensor(gen.uniform(0.5, 1.5, (low_s.num_leaves - len(low_s.const_slots),
+                                                      batch)), dtype=torch.float32, device=dev)
+
+    jit_shard_report = {}
+    mesh_22 = Mesh([("graph", 2), ("batch", 2)], device=dev)
+    for mode, low_s in shard_keep.items():
+        for mesh_s, batch_axis, batches, tag in (
+                (mesh_g, None, (BATCH, RAGGED_BATCH), f"{N_GRAPH} local graph ranks"),
+                (mesh_22, "batch", SHARD_2X2_BATCHES, "a local 2 x 2 graph x batch mesh")):
+            sh_e, sh_j = (make_graph_sharded_evaluator(low_s, mesh_s, batch_axis=batch_axis,
+                                                       dtype=torch.float32, jit=jit)
+                          for jit in (False, True))
+            for batch in batches:
+                leaves = leaf_block(low_s, batch)
+                timed = batch == BATCH and (mode == "fused" or batch_axis is None)
+                label = f"order-4 Gamma4 {mode} sharded pass on {tag}, batch {batch} f32"
+                jit_shard_report[label] = shard_case(
+                    label, lambda: sh_e(leaves), lambda: sh_j(leaves),
+                    samples=batch if timed else None, queued=True)
+                del leaves
+            del sh_e, sh_j
+            torch.cuda.empty_cache()
+    phase("jit sharded: graph axis")
+
+    # the sample axis, on a local 4-rank mesh and on the one-rank NCCL mesh
+    c = compiled["fused"]
+    vk32 = torch.randn((3, para.totalLoopNum, BATCH), generator=dev_gen, device=dev)
+    vt32 = torch.rand((para.totalTauNum, BATCH), generator=dev_gen, device=dev) * BETA
+
+    def sample_cases(mesh_s, tag, timed):
+        f_e, f_j = (shard_compiled(c, mesh_s, jit=jit) for jit in (False, True))
+        s_e, s_j = (make_mc_step(c, mesh_s, beta=BETA, jit=jit) for jit in (False, True))
+        bpd = BATCH // mesh_s.size if timed else SAMPLE_MC_BATCH
+        out = {f"shard_compiled, {tag}": shard_case(
+            f"order-4 Gamma4 fused shard_compiled on {tag}, batch {BATCH} f32",
+            lambda: f_e(vk32, vt32), lambda: f_j(vk32, vt32), BATCH if timed else None)}
+        out[f"make_mc_step, {tag}"] = shard_case(
+            f"order-4 Gamma4 fused make_mc_step on {tag}, {bpd} a rank, seed {SEED}",
+            lambda: s_e(SEED, bpd), lambda: s_j(SEED, bpd),
+            bpd * mesh_s.size if timed else None)
+        return out
+
+    jit_shard_report.update(sample_cases(make_sample_mesh(N_GRAPH, device=dev),
+                                         f"a local {N_GRAPH}-rank sample mesh", True))
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(f"file://{tmp}/store", 1, 0, device=dev)
+        try:
+            backend = dist.get_backend()
+            jit_shard_report.update(sample_cases(make_sample_mesh(device=dev),
+                                                 f"the one-rank {backend} mesh", False))
+            # the graph axis over the process group: the halos through NCCL
+            mesh_d = Mesh([("graph", N_GRAPH)], device=dev, groups={"graph": dist.group.WORLD})
+            sh_e, sh_j = (make_graph_sharded_evaluator(shard_keep["fused"], mesh_d,
+                                                       dtype=torch.float32, jit=jit)
+                          for jit in (False, True))
+            leaves = leaf_block(shard_keep["fused"], BATCH)
+            label = (f"order-4 Gamma4 fused sharded pass, its {N_GRAPH}-rank graph axis over the "
+                     f"one-rank {backend} group (the halos through {backend}), batch {BATCH} f32")
+            jit_shard_report[label] = shard_case(label, lambda: sh_e(leaves), lambda: sh_j(leaves))
+            del sh_e, sh_j, leaves
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    if backend != "nccl":
+        fail(f"jit sharded: the process group's backend is {backend}, not nccl")
+    del vk32, vt32
+    torch.cuda.empty_cache()
+    phase("jit sharded: sample axis")
+
+    # config 5 at its own order 5: serve(jit=True) against serve(jit=False)
+    low_c5, tables_c5 = load_artifact(paths5["config5"])
+    served = {jit: config5_serving.serve(low_c5, tables_c5, device=dev, batch_per_device=BATCH,
+                                         iters=SHARD_MC_ITERS, seed=SEED, jit=jit)
+              for jit in (False, True)}
+    (m_e, step_e, mesh_c5), (m_j, step_j, _) = served[False], served[True]
+    ok = torch.equal(m_e, m_j)
+    print(f"jit sharded: config5 order 5, serve(jit=True) vs serve(jit=False) on the "
+          f"{mesh_c5.shape} mesh, {BATCH} a device, {SHARD_MC_ITERS} iterations: bit for bit "
+          f"{ok}", flush=True)
+    if not ok:
+        fail(f"jit sharded: config5 order 5 captured means differ from eager: max|diff| "
+             f"{(m_e - m_j).abs().max().item():.3e}")
+    label = (f"config5 order 5 MC step on the {mesh_c5.shape} mesh, {BATCH} a device, "
+             f"{SHARD_MC_ITERS} iterations, seed {SEED + 1}")
+    jit_shard_report[label] = shard_case(
+        label, lambda: step_e(SEED + 1, BATCH, SHARD_MC_ITERS),
+        lambda: step_j(SEED + 1, BATCH, SHARD_MC_ITERS),
+        BATCH * mesh_c5.shape["batch"] * SHARD_MC_ITERS, n=C5_CALLS, host_calls=1)
+    jit_shard_report["config5 order 5 serve"] = {"bit_for_bit": ok}
+    del served, m_e, m_j, step_e, step_j, low_c5, tables_c5
+    torch.cuda.empty_cache()
+    phase("jit sharded: config5 order 5")
+
+    # scaling.py at order 3 on local meshes of 1, 2 and 4 ranks, eager and
+    # captured in one table (the gamma4 phase's scaling lines are eager)
+    roots3, para3 = g4.vertex4_roots(3)
+    c3 = compile_evaluator(roots3, max_loop_num=para3.totalLoopNum, beta=BETA, kF=KF, lam=LAM,
+                           device=dev, dtype=torch.float32)
+    pts = [p_ for jit in (False, True)
+           for p_ in (scaling.sample_axis_points(c3, para3, (1, 2, 4), BATCH, 10, dev, jit=jit)
+                      + scaling.graph_axis_points(roots3, (1, 2, 4), 1024, 10, dev, jit=jit))]
+    for p_ in pts:
+        print(f"jit scaling: {json.dumps(p_)}", flush=True)
+    for line in scaling.table(pts).splitlines():
+        print(f"jit scaling: {line}  [{smi}]", flush=True)
+    jit_shard_report["scaling"] = pts
+    del c3, roots3
+    torch.cuda.empty_cache()
+    phase("jit sharded: scaling")
+
+    # benchmarks/probe_bucket_fusion.py at the JAX script's shapes
+    fusion = probe_bucket_fusion.run(dev)
+    for row in fusion["rows"]:
+        print(f"probe_bucket_fusion: {json.dumps(row)}", flush=True)
+    if not fusion["ok"]:
+        fail("probe_bucket_fusion: the level kernel left its plain version, or a formulation "
+             "left the kernel beyond its tolerance")
+    torch.cuda.empty_cache()
+    phase("jit sharded: probe_bucket_fusion")
+
 
     fused, bucketed = times["fused"], times["bucketed"]
     # onehot's other design, timed in turns with the kernel of record
@@ -2837,7 +3076,8 @@ def main() -> None:
         "config4": config4, "gv_sigma6": gv_report["sigma6"],
         "gamma4": {str(order): rep for order, rep in g4_report.items()},
         "gamma4_past_2_31": g4_big,
-        "jit": {"paths_captured": sorted(jit_report), "cases": jit_report}}] + [{
+        "jit": {"paths_captured": sorted(jit_report), "cases": jit_report},
+        "jit_sharded": jit_shard_report, "probe_bucket_fusion": fusion["rows"]}] + [{
             "name": f"probe_{name}", "route": "cuda",
             "source": "feynmandiagram_tpu_torch/csrc/row_probes.cu",
             "replaces": f"benchmarks/probe_mosaic_caps.py:{PROBE_LINE[name]}",

@@ -1,7 +1,8 @@
 """Benchmarks and probes of the port on one GPU, counterparts of the JAX
 package's ``benchmarks/`` scripts of the same names (``probe_mosaic_caps``,
-``probe_gather``, ``bench_config4``, ``certify_sharded``, ``scan_merge``,
-``probe_structure``, ``probe_split``, ``scaling``), and the port's own
+``probe_gather``, ``probe_bucket_fusion``, ``bench_config4``,
+``certify_sharded``, ``scan_merge``, ``probe_structure``, ``probe_split``,
+``scaling``), and the port's own
 (``profile_pass``, ``gamma4_orders``, ``slice_error``).
 
 Each runs as ``python -m feynmandiagram_tpu_torch.benchmarks.<name>`` on a
@@ -60,3 +61,35 @@ def events_ms(fn: Callable[..., object], *args, iters: int = 20) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+QUEUED_REPS = 5
+
+
+def queued_ms(fn: Callable[[], object], reps: int = QUEUED_REPS) -> float:
+    """Device ms of one call of ``fn`` with the host out of the way: the
+    call is enqueued between two CUDA events behind a sleep kernel, which
+    is lengthened until the first event is still pending when the host is
+    done, so that the device never waits for the host.  The median of
+    ``reps`` such runs, after one warm-up call; ``fn`` must not wait for the
+    device.  ``chip_smoke.py``'s ``queued_ms``, for one call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles, runs = 10 ** 7, []
+    while len(runs) < reps:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        e0.record()
+        fn()
+        e1.record()
+        starved = e0.query()
+        torch.cuda.synchronize()
+        if not starved:
+            runs.append(e0.elapsed_time(e1))
+        elif cycles < 2 ** 32:
+            cycles *= 2
+        else:
+            raise RuntimeError("the host did not enqueue the call within a sleep of 2^32 "
+                               "cycles: it waits for the device")
+    return statistics.median(runs)

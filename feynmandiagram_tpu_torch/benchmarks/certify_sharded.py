@@ -10,10 +10,12 @@ one JSON line.  The mesh is local: all its ranks run in this process on the
 one device, so the times are of that device, not of a multi-device mesh.
 On CUDA both evaluators run the same kernel on the same rows, and the
 roots agree bit for bit; on the CPU the plain sums may round in another
-order, within 1e-10 of each root's scale (float64).
+order, within 1e-10 of each root's scale (float64).  The JAX script's
+evaluators are jitted; ``--jit`` captures both as CUDA graphs
+(``jit=True``), and raises ``ValueError`` off CUDA.
 
 Usage: python -m feynmandiagram_tpu_torch.benchmarks.certify_sharded
-           [--order 5] [--n-graph 8] [--batch 4] [--device cpu]
+           [--order 5] [--n-graph 8] [--batch 4] [--device cpu] [--jit]
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ CPU_RTOL = 1e-10
 
 
 def certify(order: int = 5, n_graph: int = 8, batch: int = 4, device=None, *,
-            roots=None, lowered=None, live_slots: Optional[int] = None) -> dict:
+            roots=None, lowered=None, live_slots: Optional[int] = None,
+            jit: bool = False) -> dict:
     """Run the certification and return the JSON line's fields.  ``roots``:
     the order's Gamma4 roots, generated and optimized already (then
     ``t_generate_s`` and ``t_optimize_s`` are 0).  ``lowered``: the sharded
@@ -37,14 +40,18 @@ def certify(order: int = 5, n_graph: int = 8, batch: int = 4, device=None, *,
     ``lower_sharded_best`` makes it (loaded from an artifact, say), with
     ``live_slots``, the slots of the order's single-device fused lowering;
     then nothing is generated or lowered, and the schedule is not known.
-    Raises ``RuntimeError`` where the sharded roots leave the unsharded
-    ones."""
+    ``jit``: both evaluators captured (their times then include the
+    capture).  Raises ``RuntimeError`` where the sharded roots leave the
+    unsharded ones."""
     from ..backends.compile import leafmap_of
     from ..ops import lower, make_evaluator
     from ..ops.dtypes import default_device
+    from ..ops.graphs import require_cuda
     from ..parallel import Mesh, lower_sharded_best, make_graph_sharded_evaluator
 
     device = torch.device(device) if device is not None else default_device()
+    if jit:
+        require_cuda(device, "certify")
 
     def sync():
         if device.type == "cuda":
@@ -77,11 +84,12 @@ def certify(order: int = 5, n_graph: int = 8, batch: int = 4, device=None, *,
     nl = lowered.num_leaves - len(lowered.const_slots)
     vals = np.random.default_rng(3).uniform(0.5, 1.5, (nl, batch))
     t0 = time.perf_counter()
-    single = make_evaluator(lowered, device=device)(vals)
+    single = make_evaluator(lowered, device=device, jit=jit)(vals)
     sync()
     t_single = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sharded = make_graph_sharded_evaluator(lowered, Mesh([("graph", n_graph)], device=device))
+    sharded = make_graph_sharded_evaluator(lowered, Mesh([("graph", n_graph)], device=device),
+                                           jit=jit)
     t_plan = time.perf_counter() - t0
     t0 = time.perf_counter()
     multi = sharded(vals)
@@ -96,7 +104,7 @@ def certify(order: int = 5, n_graph: int = 8, batch: int = 4, device=None, *,
 
     st = sharded.stats
     return {
-        "order": order, "n_graph": n_graph, "batch": batch, "device": str(device),
+        "order": order, "n_graph": n_graph, "batch": batch, "device": str(device), "jit": jit,
         "dtype": str(single.dtype).split(".")[1], "schedule": sched,
         "full_slots": int(st.full_slots),
         "live_slots_single_device": int(live_slots),
@@ -123,8 +131,10 @@ def main(argv=None):
     parser.add_argument("--batch", type=int, default=4)
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card; 'cpu' on purpose)")
+    parser.add_argument("--jit", action="store_true",
+                        help="capture both evaluators as CUDA graphs (a CUDA device)")
     args = parser.parse_args(argv)
-    print(json.dumps(certify(args.order, args.n_graph, args.batch, args.device)))
+    print(json.dumps(certify(args.order, args.n_graph, args.batch, args.device, jit=args.jit)))
 
 
 if __name__ == "__main__":

@@ -17,10 +17,16 @@ All the ranks of a local mesh run one after the other on the one device,
 as the reference's virtual CPU mesh time-shares the host's cores.  So the
 script shows the mechanics (the collectives run, the numbers agree) and
 the halo model; it does not measure scaling on hardware.  The link model
-is the projection for ranks on separate cards.
+is the projection for ranks on separate cards.  Eager, each rank's pass
+costs the host as much as the whole pass did, so the rates halve with each
+doubling of ranks; ``--jit`` adds the same points with both passes captured
+as CUDA graphs (``shard_compiled(jit=True)``,
+``make_graph_sharded_evaluator(jit=True)``, as the JAX script's are
+jitted), whose rates are the card's cost of more local ranks.  It needs a
+CUDA device.
 
 Usage: python -m feynmandiagram_tpu_torch.benchmarks.scaling [--ranks 8] [--order 3]
-           [--batch 1024] [--iters 10] [--device cpu]
+           [--batch 1024] [--iters 10] [--device cpu] [--jit]
 Prints one JSON line a measurement, then a markdown table.
 """
 from __future__ import annotations
@@ -51,9 +57,9 @@ def rank_counts(n: int) -> List[int]:
 
 
 def sample_axis_points(compiled, para, counts: Sequence[int], batch_total: int,
-                       iters: int, device) -> List[dict]:
+                       iters: int, device, jit: bool = False) -> List[dict]:
     """samples/s at a fixed total batch, split over a local sample axis of
-    each rank count."""
+    each rank count; ``jit``: the pass captured (``shard_compiled``)."""
     from ..parallel import make_sample_mesh, shard_compiled
 
     device = torch.device(device)
@@ -65,7 +71,7 @@ def sample_axis_points(compiled, para, counts: Sequence[int], batch_total: int,
                            device=device)
     points = []
     for n in counts:
-        fn = shard_compiled(compiled, make_sample_mesh(n, device=device))
+        fn = shard_compiled(compiled, make_sample_mesh(n, device=device), jit=jit)
         fn(varK, varT)
         _sync(device)
         t0 = time.perf_counter()
@@ -73,30 +79,34 @@ def sample_axis_points(compiled, para, counts: Sequence[int], batch_total: int,
             fn(varK, varT)
         _sync(device)
         dt = time.perf_counter() - t0
-        points.append({"axis": "sample", "devices": n,
+        points.append({"axis": "sample", "devices": n, "jit": jit,
                        "samples_per_s": round(batch_total * iters / dt, 1)})
     return points
 
 
 def graph_axis_points(roots, counts: Sequence[int], batch: int, iters: int,
-                      device) -> List[dict]:
+                      device, jit: bool = False) -> List[dict]:
     """edges/s through the graph-sharded evaluator on a local graph axis of
     each rank count, its roots against the unsharded evaluator's, and the
-    planner's halo traffic.  Raises ``RuntimeError`` where the roots
-    differ."""
+    planner's halo traffic; ``jit``: the sharded pass captured.  Raises
+    ``RuntimeError`` where the roots differ."""
     from ..backends.compile import leafmap_of
     from ..ops import lower, make_evaluator
+    from ..ops.dtypes import default_dtype
     from ..parallel import Mesh, make_graph_sharded_evaluator
 
     device = torch.device(device)
     lowered = lower(roots, leafmap_of(roots), sum_mode="fused", cse=True, reuse_slots=False)
     nl = lowered.num_leaves - len(lowered.const_slots)
-    vals = np.random.default_rng(1).uniform(0.5, 1.5, (nl, batch))
+    # on the device once, so that no timed call copies from the host
+    vals = torch.as_tensor(np.random.default_rng(1).uniform(0.5, 1.5, (nl, batch)),
+                           dtype=default_dtype(device), device=device)
     single = make_evaluator(lowered, device=device)(vals)
     scale = single.abs().amax(dim=1).clamp_min(torch.finfo(single.dtype).tiny)
     points = []
     for n in counts:
-        fn = make_graph_sharded_evaluator(lowered, Mesh([("graph", n)], device=device))
+        fn = make_graph_sharded_evaluator(lowered, Mesh([("graph", n)], device=device),
+                                          jit=jit)
         out = fn(vals)
         _sync(device)
         rel = ((out - single).abs().amax(dim=1) / scale).max().item()
@@ -112,7 +122,7 @@ def graph_axis_points(roots, counts: Sequence[int], batch: int, iters: int,
         s = fn.stats
         halo_bytes = s.halo_bytes_per_sample(4) * batch
         points.append({
-            "axis": "graph", "devices": n,
+            "axis": "graph", "devices": n, "jit": jit,
             "edges_per_s": round(lowered.num_edges * batch * iters / dt, 0),
             "local_slots": s.local_slots, "full_slots": s.full_slots,
             "mem_ratio": round(s.local_slots / s.full_slots, 4),
@@ -124,25 +134,27 @@ def graph_axis_points(roots, counts: Sequence[int], batch: int, iters: int,
 
 
 def table(points: Sequence[dict]) -> str:
-    """The reference's markdown table of rates, speedups and efficiencies."""
-    base_s = next(p for p in points if p["axis"] == "sample")["samples_per_s"]
-    base_g = next(p for p in points if p["axis"] == "graph")["edges_per_s"]
-    lines = ["| axis | devices | rate | speedup | efficiency |", "|---|---|---|---|---|"]
+    """The reference's markdown table of rates, speedups and efficiencies,
+    each against the first point of its axis and pass (eager or
+    captured)."""
+    rate = {"sample": "samples_per_s", "graph": "edges_per_s"}
+    base = {}
+    lines = ["| axis | devices | pass | rate | speedup | efficiency |",
+             "|---|---|---|---|---|---|"]
     for p in points:
-        if p["axis"] == "sample":
-            sp = p["samples_per_s"] / base_s
-            lines.append(f"| sample | {p['devices']} | {p['samples_per_s']:.0f} samp/s "
-                         f"| {sp:.2f}x | {sp / p['devices']:.0%} |")
-        else:
-            sp = p["edges_per_s"] / base_g
-            lines.append(f"| graph | {p['devices']} | {p['edges_per_s']:.2e} edge/s "
-                         f"| {sp:.2f}x | {sp / p['devices']:.0%} |")
+        key = (p["axis"], p.get("jit", False))
+        r = p[rate[p["axis"]]]
+        sp = r / base.setdefault(key, r)
+        shown = f"{r:.0f} samp/s" if p["axis"] == "sample" else f"{r:.2e} edge/s"
+        lines.append(f"| {p['axis']} | {p['devices']} | {'captured' if key[1] else 'eager'} "
+                     f"| {shown} | {sp:.2f}x | {sp / p['devices']:.0%} |")
     return "\n".join(lines)
 
 
 def main(argv=None) -> None:
     from ..backends.compile import compile_evaluator
     from ..ops.dtypes import default_device, default_dtype
+    from ..ops.graphs import require_cuda
     from . import card_name
     from .gamma4_orders import vertex4_roots
 
@@ -153,16 +165,24 @@ def main(argv=None) -> None:
     parser.add_argument("--iters", type=int, default=10)
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card; 'cpu' on purpose)")
+    parser.add_argument("--jit", action="store_true",
+                        help="also time both axes captured as CUDA graphs (a CUDA device)")
     args = parser.parse_args(argv)
     device = torch.device(args.device) if args.device else default_device()
+    if args.jit:
+        require_cuda(device, "scaling --jit: shard_compiled")
     counts = rank_counts(args.ranks)
     platform = card_name() if device.type == "cuda" else "cpu"
     print(f"# device={platform} local ranks={counts} order={args.order}")
     roots, para = vertex4_roots(args.order)
     compiled = compile_evaluator(roots, max_loop_num=para.totalLoopNum, beta=BETA, kF=KF,
                                  lam=LAM, device=device, dtype=default_dtype(device))
-    points = sample_axis_points(compiled, para, counts, args.batch, args.iters, device)
-    points += graph_axis_points(roots, counts, max(args.batch // 4, 64), args.iters, device)
+    points = []
+    for jit in ((False, True) if args.jit else (False,)):
+        points += sample_axis_points(compiled, para, counts, args.batch, args.iters, device,
+                                     jit=jit)
+        points += graph_axis_points(roots, counts, max(args.batch // 4, 64), args.iters,
+                                    device, jit=jit)
     for p in points:
         print(json.dumps(p))
     print("\n" + table(points))

@@ -13,10 +13,13 @@ the Monte-Carlo estimation step with the graph memory-partitioned over the
 (``parallel.make_graph_sharded_mc_step``).  The mesh is 4 x 2 (graph x
 batch), local to this process on its one device, unless
 ``torch.distributed`` is initialised: then the graph axis spans the
-processes of the default group.
+processes of the default group.  The JAX step runs its iterations under one
+``jax.jit``; ``--jit`` (``serve(jit=True)``) replays one captured CUDA graph
+an iteration (``make_graph_sharded_mc_step(jit=True)``), and raises
+``ValueError`` off CUDA.
 
 Usage:  python -m feynmandiagram_tpu_torch.examples.config5_serving [order] [artifact.npz]
-            [--device cpu] [--batch-per-device N] [--iters N]
+            [--device cpu] [--batch-per-device N] [--iters N] [--jit]
 """
 import argparse
 import os
@@ -56,15 +59,16 @@ def generate(order: int, path: str, n_graph: int = 4) -> None:
 
 
 def serve(lowered, tables, *, device=None, batch_per_device: int = 8, iters: int = 4,
-          seed: int = 0):
+          seed: int = 0, jit: bool = False):
     """One sharded estimation step of ``lowered`` (with its leaf tables) on
     the 4 x 2 mesh, its graph axis over the default process group where
     ``torch.distributed`` is initialised: prints the footprint and the first
-    means, and returns ``(means, step, mesh)``."""
+    means, and returns ``(means, step, mesh)``.  ``jit``: the step's
+    iteration captured as one CUDA graph."""
     device = torch.device(device) if device is not None else default_device()
     groups = {GRAPH_AXIS: dist.group.WORLD} if dist.is_initialized() else None
     mesh = Mesh(MESH, device=device, groups=groups)
-    step = make_graph_sharded_mc_step(lowered, tables, mesh, beta=BETA, kF=KF, lam=LAM)
+    step = make_graph_sharded_mc_step(lowered, tables, mesh, beta=BETA, kF=KF, lam=LAM, jit=jit)
     st = step.stats
     print(f"[serve] {lowered.num_slots} slots -> {st.local_slots}/rank on a {mesh.shape} "
           f"mesh on {device}; halo {st.halo_bytes_per_sample() / 1024:.1f} KiB/sample "
@@ -76,7 +80,8 @@ def serve(lowered, tables, *, device=None, batch_per_device: int = 8, iters: int
     dt = time.perf_counter() - t0
     n = batch_per_device * iters * mesh.shape["batch"]
     print(f"[serve] {n} samples in {dt:.2f} s (the first call; builds the kernel where it "
-          f"is not built); first root means: {means[:4].cpu().numpy()}")
+          f"is not built{', and captures the iteration' if jit else ''}); first root means: "
+          f"{means[:4].cpu().numpy()}")
     return means, step, mesh
 
 
@@ -94,13 +99,15 @@ def main(argv=None):
                         help="torch device (default: the CUDA card; 'cpu' on purpose)")
     parser.add_argument("--batch-per-device", type=int, default=8)
     parser.add_argument("--iters", type=int, default=4)
+    parser.add_argument("--jit", action="store_true",
+                        help="capture the step's iteration as a CUDA graph (a CUDA device)")
     args = parser.parse_args(argv)
     path = args.artifact or os.path.join(tempfile.gettempdir(), f"ver4_o{args.order}.npz")
     if not os.path.exists(path):
         generate(args.order, path)
     lowered, tables = load_artifact(path)
     serve(lowered, tables, device=args.device, batch_per_device=args.batch_per_device,
-          iters=args.iters)
+          iters=args.iters, jit=args.jit)
 
 
 if __name__ == "__main__":

@@ -5,9 +5,12 @@ bucketed evaluation of 1e4 Monte-Carlo samples on the card -> crude
 importance-free estimator means, then one Monte-Carlo estimation step over
 the sample mesh (``parallel.make_mc_step``).  The mesh has one rank in this
 process, or spans the processes of ``torch.distributed`` where the
-environment configures a group (``utils.initialize_distributed``).
+environment configures a group (``utils.initialize_distributed``).  The
+JAX example jits both; ``--jit`` captures both as CUDA graphs
+(``compile_evaluator(jit=True)``, ``make_mc_step(jit=True)``), and raises
+``ValueError`` off CUDA.
 
-Run:  python -m feynmandiagram_tpu_torch.examples.sigma_mc [--batch N] [--device cpu]
+Run:  python -m feynmandiagram_tpu_torch.examples.sigma_mc [--batch N] [--device cpu] [--jit]
 """
 import argparse
 import time
@@ -31,6 +34,8 @@ def main(argv=None):
     parser.add_argument("--batch", type=int, default=10000)
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card; 'cpu' on purpose)")
+    parser.add_argument("--jit", action="store_true",
+                        help="capture the pass and the MC step as CUDA graphs (a CUDA device)")
     args = parser.parse_args(argv)
     device = torch.device(args.device) if args.device else default_device()
     para = DiagPara(type=SigmaDiag, innerLoopNum=2, hasTau=True, filter=(NoHartree,),
@@ -41,7 +46,7 @@ def main(argv=None):
     roots = [row["diagram"] for row in df]
     optimize_inplace(roots)
     compiled = compile_evaluator(roots, max_loop_num=para.totalLoopNum, beta=BETA, kF=KF,
-                                 lam=LAM, sum_mode="bucketed", device=device)
+                                 lam=LAM, sum_mode="bucketed", device=device, jit=args.jit)
 
     rng = np.random.default_rng(0)
     varK = rng.standard_normal((3, para.totalLoopNum, args.batch)) * KF
@@ -52,14 +57,15 @@ def main(argv=None):
     weights = compiled(varK, varT).cpu().numpy()
     dt = time.perf_counter() - t0
     print(f"evaluated {args.batch} samples x {weights.shape[0]} sigma groups on {device} "
-          f"in {dt * 1e3:.1f} ms, the first call ({args.batch / dt:,.0f} samples/s)")
+          f"in {dt * 1e3:.1f} ms, the first call{' (its capture included)' if args.jit else ''} "
+          f"({args.batch / dt:,.0f} samples/s)")
     for row, mean in zip(df, weights.mean(axis=1)):
         print(f"  extT={row['extT']}: mean weight {mean:+.6e}")
 
     # the estimation step over the sample mesh
     initialize_distributed(device=device)
     mesh = make_sample_mesh(device=device)
-    means = make_mc_step(compiled, mesh, beta=BETA)(0, 1024).cpu().numpy()
+    means = make_mc_step(compiled, mesh, beta=BETA, jit=args.jit)(0, 1024).cpu().numpy()
     print(f"mesh({mesh.size} ranks) MC step means: {means[:3]} ...")
 
 

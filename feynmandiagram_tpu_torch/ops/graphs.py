@@ -9,7 +9,9 @@ counters (``level_gather_reduce.launches``) and the profiler's scopes see
 the capture only, never a replay.
 
 ``capture`` warms a body up and captures it; ``Captured`` replays one at
-the shapes of its last call and re-captures when they change.
+the shapes of its last call and re-captures when they change;
+``SeededGraph`` replays a body that draws from generators, each seeded
+before the replay; ``one_shape`` holds one such graph at a time.
 """
 from __future__ import annotations
 
@@ -48,6 +50,10 @@ def capture(body: Callable[[], torch.Tensor],
         graph.register_generator_state(gen)
     with torch.cuda.graph(graph):
         out = body()
+    # a replay writes into the buffers that body's closure holds (a static
+    # w, the draws), which live outside the graph's pool: they must live
+    # as long as the graph, or the allocator hands their memory to others
+    graph.body = body
     return graph, out
 
 
@@ -91,3 +97,38 @@ class Captured:
             _load(s, x)
         graph.replay()
         return out.clone()
+
+
+def one_shape(build: Callable):
+    """``get(key)``: what ``build(key)`` returned, held for one key at a
+    time; a new key drops the old value (its graph and buffers) before it
+    builds, as ``Captured`` does for a new input signature."""
+    held = {}
+
+    def get(key):
+        if key not in held:
+            held.clear()
+            held[key] = build(key)
+        return held[key]
+
+    return get
+
+
+class SeededGraph:
+    """``body`` captured once with ``generators`` registered with the graph.
+
+    ``replay(seeds)`` seeds each generator with its seed and replays: the
+    draws are those of an eager run of ``body`` from generators seeded so
+    (a replay reads each generator's state at replay time).  It returns the
+    static output, which the next replay overwrites."""
+
+    def __init__(self, body: Callable[[], torch.Tensor],
+                 generators: Sequence[torch.Generator]):
+        self.generators = list(generators)
+        self.graph, self.out = capture(body, generators=self.generators)
+
+    def replay(self, seeds: Sequence[int]) -> torch.Tensor:
+        for gen, seed in zip(self.generators, seeds, strict=True):
+            gen.manual_seed(seed)
+        self.graph.replay()
+        return self.out

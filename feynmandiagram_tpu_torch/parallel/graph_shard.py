@@ -38,6 +38,13 @@ The planner (``_plan`` and its helpers, ``_resolve_plan``,
 ``lower_sharded_best``) is the JAX package's numpy code, copied with
 unchanged behaviour.  The JAX package's ``layout='tile'``, the TPU's
 tile-row form, is not ported.
+
+The JAX package jits the sharded evaluator and runs the sharded MC step's
+iterations in one ``fori_loop`` under one ``jax.jit``.  Here both run
+eagerly by default; ``jit=True`` replays a ``StaticShardedPass`` (every
+rank's buffers allocated once, no zero-fill, no wait for the host) as a
+CUDA graph (``ops.graphs``): the evaluator's whole pass, and one iteration
+of the MC step over every rank held here, replayed ``iters`` times.
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ import numpy as np
 import torch
 
 from ..ops.dtypes import default_dtype
+from ..ops.graphs import Captured, SeededGraph, one_shape, require_cuda
 from ..ops.kernels import LevelTables, level_gather_reduce, pack_level
 from ..ops.lowering import LoweredGraph, TILE_ROWS, _pad_to
 from .sharding import BATCH_AXIS, Mesh, _rank_columns, rank_seed
@@ -381,6 +389,44 @@ def _resolve_plan(lowered: LoweredGraph, n_dev: int,
 
 
 
+def sharded_unwritten_reads(levels: List[_LevelSched], root_send_idx: np.ndarray,
+                            leaf_chunk: int, local_slots: int, d: int):
+    """The rows of rank ``d``'s buffer that a sharded pass reads before it
+    writes them, as ``ops.evaluator.unwritten_reads`` gives them for the
+    unsharded buffer: those that no group of the pass writes (a static
+    buffer zeroes them once), and those that a later group writes (zeroed
+    before every pass).  A pass writes the leaf rows first; a rank's buffer
+    is read only through its send tables, in the order of
+    ``_DeviceEval.halos``: level 0's early rows, then for each level its
+    late rows and the next level's early rows before the level's groups
+    write their chunks; the root send table at the end.  The groups read
+    only the halo, every row of which the exchange writes.  Padded send
+    entries read the leaf row 0, and padded chunk rows are written with
+    their group's, so on the plans of this package both arrays are
+    empty."""
+    written = np.zeros(local_slots, bool)
+    written[:leaf_chunk] = True
+    unread = np.zeros(local_slots, bool)     # read before any write of the pass
+    later = np.zeros(local_slots, bool)      # ... and written afterwards
+
+    def read(rows) -> None:
+        rows = np.asarray(rows, np.int64).ravel()
+        unread[rows[~written[rows]]] = True
+
+    if levels:
+        read(levels[0].early_send[d])
+    for li, lv in enumerate(levels):
+        read(lv.late_send[d])
+        if li + 1 < len(levels):
+            read(levels[li + 1].early_send[d])
+        for g in lv.groups:
+            rows = slice(int(g.local_off[d]), int(g.local_off[d]) + g.chunk)
+            later[rows] |= unread[rows]
+            written[rows] = True
+    read(root_send_idx[d])
+    return np.flatnonzero(unread & ~later), np.flatnonzero(later)
+
+
 def _check_layout(layout: str) -> None:
     if layout != "flat":
         raise ValueError(f"layout={layout!r}: the port has the flat layout only; 'tile' is "
@@ -485,11 +531,15 @@ class _DeviceEval:
     def roots(self, ws: List[torch.Tensor]) -> torch.Tensor:
         return self.gather(ws, self.root_send)[self.root_pos]
 
-    def __call__(self, leaf_blocks: Sequence[torch.Tensor]) -> torch.Tensor:
-        ws = self.init(leaf_blocks)
+    def run(self, ws: List[torch.Tensor]) -> torch.Tensor:
+        """Every level on the buffers ``ws``, their leaf rows filled, in
+        place; the roots."""
         for li, halo in self.halos(ws):
             self.compute(li, ws, halo)
         return self.roots(ws)
+
+    def __call__(self, leaf_blocks: Sequence[torch.Tensor]) -> torch.Tensor:
+        return self.run(self.init(leaf_blocks))
 
 
 class _Plan:
@@ -511,6 +561,14 @@ class _Plan:
         self.const_values = torch.as_tensor(np.asarray(lowered.const_values),
                                             device=mesh.device).to(self.dtype)
         self.leaf_rows = self.leaf_chunk * n_dev
+        self.ranks = list(mesh.local_ranks(graph_axis))
+        self.zero_rows, self.rezero_rows = [], []
+        for d in self.ranks:
+            zero, rezero = sharded_unwritten_reads(levels, root_send_idx, self.leaf_chunk,
+                                                   self.stats.local_slots, d)
+            self.zero_rows.append(torch.as_tensor(zero, device=mesh.device))
+            self.rezero_rows.append(torch.as_tensor(rezero, device=mesh.device)
+                                    if rezero.size else None)
 
     def blocks(self, leaf_values: torch.Tensor) -> List[torch.Tensor]:
         """The leaf blocks of the ranks held here, for ``leaf_values``
@@ -527,17 +585,61 @@ class _Plan:
     def eval(self, leaf_values: torch.Tensor) -> torch.Tensor:
         return self.device_eval(self.blocks(leaf_values))
 
+    def static_pass(self, batch: int) -> "StaticShardedPass":
+        """A new ``StaticShardedPass`` of this plan at ``batch``."""
+        return StaticShardedPass(self, batch)
+
+
+class StaticShardedPass:
+    """The sharded pass at one batch size on buffers allocated once: what a
+    CUDA graph captures, the counterpart of ``ops.evaluator.StaticPass``.
+
+    ``full`` is the leaf rows of every rank ``[leaf_rows, batch]``, its
+    constant rows and zero padding written here, once; ``leaves`` is its
+    first ``nl_input`` rows (a view, which the caller or the leaf phase
+    fills before each ``run``).  ``ws`` holds each rank's buffer
+    ``[local_slots, batch]``, of which only the rows that
+    ``sharded_unwritten_reads`` names (``zero_rows``, a tensor a rank) are
+    zeroed, once.  ``run()`` copies
+    each rank's leaf block into its buffer's first rows, runs the levels in
+    place and returns the roots ``[R, batch]``: the halos and the roots are
+    gathered into new tensors (from a graph's pool, under capture), and
+    nothing waits for the host."""
+
+    def __init__(self, plan: _Plan, batch: int):
+        dev, dtype = plan.mesh.device, plan.dtype
+        self._plan = plan
+        self.full = torch.zeros((plan.leaf_rows, batch), dtype=dtype, device=dev)
+        if plan.n_const:
+            self.full[plan.nl_input:plan.nl_input + plan.n_const] = plan.const_values[:, None]
+        self.leaves = self.full[:plan.nl_input]
+        self.ws = [torch.empty((plan.stats.local_slots, batch), dtype=dtype, device=dev)
+                   for _ in plan.ranks]
+        self.zero_rows = plan.zero_rows
+        for w, rows in zip(self.ws, self.zero_rows):
+            w[rows] = 0
+
+    def run(self) -> torch.Tensor:
+        plan, c = self._plan, self._plan.leaf_chunk
+        for w, d, rows in zip(self.ws, plan.ranks, plan.rezero_rows):
+            if rows is not None:
+                w[rows] = 0
+            w[:c].copy_(self.full[d * c:(d + 1) * c])
+        return plan.device_eval.run(self.ws)
+
 
 class _Sharded:
     """Callable wrapper carrying the planner footprint as ``.stats``, the
-    device body as ``.device_eval`` and the leaf blocks of the ranks held
-    here as ``.blocks(leaf_values)``."""
+    device body as ``.device_eval``, the leaf blocks of the ranks held
+    here as ``.blocks(leaf_values)`` and the plan's static pass at a batch
+    size as ``.static_pass(batch)``."""
 
     def __init__(self, fn, plan: _Plan):
         self._fn = fn
         self.stats = plan.stats
         self.device_eval = plan.device_eval
         self.blocks = plan.blocks
+        self.static_pass = plan.static_pass
 
     def __call__(self, leaf_values):
         return self._fn(leaf_values)
@@ -574,7 +676,7 @@ def make_graph_sharded_evaluator(lowered: LoweredGraph, mesh: Mesh, *,
                                  batch_axis: Optional[str] = None,
                                  dtype=None, local_reuse: bool = True,
                                  interleave: Optional[bool] = None,
-                                 layout: str = "flat"):
+                                 layout: str = "flat", jit: bool = False):
     """Build ``f(leaf_values[num_leaves, batch]) -> roots[R, batch]`` with a
     slot-partitioned weight buffer: each rank holds ``stats.local_slots``
     rows (~``live_slots / n`` with the default per-rank reuse) plus the
@@ -586,20 +688,63 @@ def make_graph_sharded_evaluator(lowered: LoweredGraph, mesh: Mesh, *,
     on CUDA and float64 on the CPU; ``interleave=None`` plans both
     ownership layouts and keeps the one with less total halo traffic.
     ``layout`` must be ``'flat'``.
+
+    ``jit=True``, the counterpart of the JAX function's ``jax.jit``, returns
+    a function that copies ``leaf_values`` (all ``nl`` rows) into a
+    ``StaticShardedPass``, replays the pass as a CUDA graph captured at the
+    first call of each batch size (one at a time: a new one frees the old
+    graph and buffers), and returns a fresh tensor of the roots.  With
+    ``batch_axis`` one graph runs every local batch rank's columns through
+    the same static pass, one after the other, and gathers the roots.  It
+    needs a CUDA device (``ValueError`` otherwise).  The default stays
+    eager.
     """
     plan = _Plan(lowered, mesh, graph_axis, dtype, local_reuse, interleave, layout)
+    if jit:
+        require_cuda(mesh.device, "make_graph_sharded_evaluator")
+
+    def leaf_input(leaf_values) -> torch.Tensor:
+        leaf_values = torch.as_tensor(leaf_values, device=mesh.device).to(plan.dtype)
+        return leaf_values[:, None] if leaf_values.dim() == 1 else leaf_values
 
     def evaluate(leaf_values) -> torch.Tensor:
-        leaf_values = torch.as_tensor(leaf_values, device=mesh.device).to(plan.dtype)
-        if leaf_values.dim() == 1:
-            leaf_values = leaf_values[:, None]
+        leaf_values = leaf_input(leaf_values)
         if batch_axis is None:
             return plan.eval(leaf_values)
         parts = [plan.eval(leaf_values[:, cols])
                  for cols in _rank_columns(leaf_values.shape[1], mesh, batch_axis)]
         return mesh.all_gather(batch_axis, parts, dim=1)
 
-    return _Sharded(evaluate, plan)
+    if not jit:
+        return _Sharded(evaluate, plan)
+
+    def prepare(leaf_values):
+        if batch_axis is None:
+            sp = plan.static_pass(leaf_values.shape[1])
+            return [sp.leaves], sp.run
+        cols = _rank_columns(leaf_values.shape[1], mesh, batch_axis)
+        sp = plan.static_pass(leaf_values.shape[1] // mesh.shape[batch_axis])
+        static = torch.empty_like(leaf_values)
+
+        def body() -> torch.Tensor:
+            parts = []
+            for c in cols:
+                sp.leaves.copy_(static[:, c])
+                parts.append(sp.run())
+            return mesh.all_gather(batch_axis, parts, dim=1)
+
+        return [static], body
+
+    captured = Captured(prepare)
+
+    def evaluate_jit(leaf_values) -> torch.Tensor:
+        leaf_values = leaf_input(leaf_values)
+        if leaf_values.shape[0] != plan.nl_input:
+            raise ValueError(f"jit=True takes all {plan.nl_input} leaf rows, got "
+                             f"{leaf_values.shape[0]}")
+        return captured(leaf_values)
+
+    return _Sharded(evaluate_jit, plan)
 
 
 def make_graph_sharded_mc_step(lowered: LoweredGraph, tables, mesh: Mesh, *,
@@ -609,7 +754,8 @@ def make_graph_sharded_mc_step(lowered: LoweredGraph, tables, mesh: Mesh, *,
                                dtype=None, local_reuse: bool = True,
                                interleave: Optional[bool] = None,
                                layout: str = "flat",
-                               interaction_convention: str = "lambda_power"):
+                               interaction_convention: str = "lambda_power",
+                               jit: bool = False):
     """The BASELINE-config-5 production shape: one Monte-Carlo estimation
     step with the graph memory-partitioned over ``graph_axis`` and the
     samples data-parallel over ``batch_axis``.
@@ -626,20 +772,35 @@ def make_graph_sharded_mc_step(lowered: LoweredGraph, tables, mesh: Mesh, *,
     samples accumulate.  Each batch rank's sums over ``iters *
     batch_per_device`` are its means, and ``mean`` reduces them over the
     batch axis.
+
+    ``jit=True`` is the counterpart of the JAX step's ``fori_loop`` under
+    one ``jax.jit``: one iteration over every batch and graph rank held
+    here (the draws into static ``varK`` / ``varT`` from one generator a
+    batch rank, registered with the graph; the leaf phase into a
+    ``StaticShardedPass``; its pass; the roots' sums into a static
+    accumulator a batch rank) is captured as one CUDA graph, and a step
+    replays it ``iters`` times, seeding each batch rank's generator with
+    ``rank_seed(seed, b, i)`` before replay ``i``: the eager step's draws
+    and means.  The graph is held for one ``batch_per_device`` at a time (a
+    new one captures again; the JAX package caches 8 shapes).  It needs a
+    CUDA device (``ValueError`` otherwise).
     """
     from ..ops.leaf_eval import make_leaf_evaluator
 
     plan = _Plan(lowered, mesh, graph_axis, dtype, local_reuse, interleave, layout)
+    if jit:
+        require_cuda(mesh.device, "make_graph_sharded_mc_step")
     leaf_fn = make_leaf_evaluator(tables, beta=beta, kF=kF, lam=lam, device=mesh.device,
                                   dtype=plan.dtype,
                                   interaction_convention=interaction_convention)
     max_loop = tables.loop_basis.shape[1]
     num_tau = int(max(tables.tau_in.max(), tables.tau_out.max()))
     n_roots = len(lowered.root_slots)
+    batch_ranks = list(mesh.local_ranks(batch_axis))
 
     def step(seed: int, batch_per_device: int, iters: int) -> torch.Tensor:
         means = []
-        for b in mesh.local_ranks(batch_axis):
+        for b in batch_ranks:
             acc = torch.zeros(n_roots, dtype=plan.dtype, device=mesh.device)
             for i in range(iters):
                 gen = torch.Generator(device=mesh.device)
@@ -652,5 +813,34 @@ def make_graph_sharded_mc_step(lowered: LoweredGraph, tables, mesh: Mesh, *,
             means.append(acc / (iters * batch_per_device))
         return mesh.mean(batch_axis, means)
 
-    step.stats = plan.stats
-    return step
+    def build(batch_per_device: int) -> SeededGraph:
+        dev = mesh.device
+        gens = [torch.Generator(device=dev) for _ in batch_ranks]
+        vk = torch.empty((3, max_loop, batch_per_device), dtype=plan.dtype, device=dev)
+        vt = torch.empty((num_tau, batch_per_device), dtype=plan.dtype, device=dev)
+        sp = plan.static_pass(batch_per_device)
+        accs = torch.zeros((len(batch_ranks), n_roots), dtype=plan.dtype, device=dev)
+
+        def body() -> torch.Tensor:
+            # normal_ and uniform_ are what torch.randn and torch.rand run
+            for gen, acc in zip(gens, accs):
+                vk.normal_(generator=gen)
+                vt.uniform_(generator=gen).mul_(beta)
+                leaf_fn(vk, vt, out=sp.leaves)
+                acc += sp.run().sum(dim=1)
+            return accs
+
+        return SeededGraph(body, gens)
+
+    graph_of = one_shape(build)
+
+    def step_jit(seed: int, batch_per_device: int, iters: int) -> torch.Tensor:
+        graph = graph_of(batch_per_device)
+        graph.out.zero_()
+        for i in range(iters):
+            graph.replay([rank_seed(seed, b, i) for b in batch_ranks])
+        return mesh.mean(batch_axis, [acc / (iters * batch_per_device) for acc in graph.out])
+
+    fn = step_jit if jit else step
+    fn.stats = plan.stats
+    return fn

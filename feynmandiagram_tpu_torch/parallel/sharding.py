@@ -17,6 +17,9 @@ an axis takes one tensor from each of them.  The layer's two collectives are
 ``all_gather`` and ``mean``.  Sample-axis parallelism is as in the JAX
 package: the batch is split over the axis, the lowered graph's tables are
 shared, and the estimator means reduce with one ``mean`` over the axis.
+The JAX package jits both; here ``jit=True`` captures each local rank's
+``CompiledEvaluator.static_pass`` and the collectives as one CUDA graph
+(``ops.graphs``), and the default stays eager.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops.dtypes import default_device, default_dtype
+from ..ops.graphs import Captured, SeededGraph, one_shape, require_cuda
 
 BATCH_AXIS = "batch"
 
@@ -143,12 +147,20 @@ def _rank_columns(batch: int, mesh: Mesh, axis: str) -> List[slice]:
     return [slice(r * per, (r + 1) * per) for r in mesh.local_ranks(axis)]
 
 
-def shard_compiled(compiled, mesh: Mesh, *, axis_name: str = BATCH_AXIS):
+def shard_compiled(compiled, mesh: Mesh, *, axis_name: str = BATCH_AXIS,
+                   jit: bool = False):
     """``f(varK, varT) -> roots[R, batch]`` with the batch split over
     ``axis_name``: each rank runs ``compiled`` (a ``CompiledEvaluator``) on
     its columns, and the roots are gathered.  Every process passes the whole
     batch and gets all of the roots.  The batch must divide by the axis's
-    size."""
+    size.
+
+    ``jit=True``, the counterpart of the JAX function's ``jax.jit``, copies
+    ``varK`` and ``varT`` into static inputs and replays one CUDA graph:
+    each local rank's ``compiled.static_pass`` on its columns, then the
+    gather.  It is captured at the first call of each input shape (one at a
+    time) and returns a fresh tensor of the roots.  It needs a CUDA device
+    (``ValueError`` otherwise)."""
     def fn(varK, varT) -> torch.Tensor:
         varK = torch.as_tensor(varK, device=mesh.device)
         varT = torch.as_tensor(varT, device=mesh.device)
@@ -157,7 +169,26 @@ def shard_compiled(compiled, mesh: Mesh, *, axis_name: str = BATCH_AXIS):
                  for cols in _rank_columns(varT.shape[-1], mesh, axis_name)]
         return mesh.all_gather(axis_name, parts, dim=1)
 
-    return fn
+    if not jit:
+        return fn
+    require_cuda(mesh.device, "shard_compiled")
+
+    def prepare(varK, varT):
+        cols = _rank_columns(varT.shape[-1], mesh, axis_name)
+        static = [torch.empty_like(varK), torch.empty_like(varT)]
+        bodies = [compiled.static_pass(varT.shape[-1] // mesh.shape[axis_name]) for _ in cols]
+
+        def body() -> torch.Tensor:
+            vk, vt = static
+            parts = [run(vk[..., c].contiguous(), vt[:, c].contiguous())
+                     for run, c in zip(bodies, cols)]
+            return mesh.all_gather(axis_name, parts, dim=1)
+
+        return static, body
+
+    captured = Captured(prepare)
+    return lambda varK, varT: captured(torch.as_tensor(varK, device=mesh.device),
+                                       torch.as_tensor(varT, device=mesh.device))
 
 
 def rank_seed(seed: int, *ranks: int) -> int:
@@ -166,7 +197,8 @@ def rank_seed(seed: int, *ranks: int) -> int:
     return int(np.random.SeedSequence([seed, *ranks]).generate_state(1, np.uint64)[0])
 
 
-def make_mc_step(compiled, mesh: Mesh, *, beta: float, axis_name: str = BATCH_AXIS):
+def make_mc_step(compiled, mesh: Mesh, *, beta: float, axis_name: str = BATCH_AXIS,
+                 jit: bool = False):
     """One Monte-Carlo estimation step, data-parallel over ``axis_name``.
 
     Returns ``step(seed, batch_per_device) -> means[R]``.  Rank ``r`` of the
@@ -178,15 +210,25 @@ def make_mc_step(compiled, mesh: Mesh, *, beta: float, axis_name: str = BATCH_AX
     reduces the ranks' estimates over the axis.  The samples are float32 on
     CUDA and float64 on the CPU.  The JAX version takes a PRNG key; the two
     generators differ anyway.
+
+    ``jit=True``, the counterpart of the JAX example's ``jax.jit`` of the
+    step, captures the whole step (each local rank's draws into static
+    ``varK`` / ``varT`` from a generator of its own, registered with the
+    graph; ``compiled.static_pass``; the sums; the ``mean``) as one CUDA
+    graph and seeds each rank's generator with ``rank_seed(seed, r)``
+    before the replay: the eager step's draws and means, in a fresh tensor.
+    One ``batch_per_device`` is held at a time.  It needs a CUDA device
+    (``ValueError`` otherwise).
     """
     tables = compiled.tables
     max_loop = compiled.max_loop_num
     num_tau = int(max(tables.tau_in.max(), tables.tau_out.max()))
     dtype = default_dtype(mesh.device)
+    ranks = list(mesh.local_ranks(axis_name))
 
     def step(seed: int, batch_per_device: int) -> torch.Tensor:
         means = []
-        for r in mesh.local_ranks(axis_name):
+        for r in ranks:
             gen = torch.Generator(device=mesh.device)
             gen.manual_seed(rank_seed(seed, r))
             vk = torch.randn((3, max_loop, batch_per_device), generator=gen, dtype=dtype,
@@ -197,4 +239,29 @@ def make_mc_step(compiled, mesh: Mesh, *, beta: float, axis_name: str = BATCH_AX
             means.append(roots.sum(dim=1) / batch_per_device)
         return mesh.mean(axis_name, means)
 
-    return step
+    if not jit:
+        return step
+    require_cuda(mesh.device, "make_mc_step")
+
+    def build(batch_per_device: int) -> SeededGraph:
+        gens = [torch.Generator(device=mesh.device) for _ in ranks]
+        vk = torch.empty((3, max_loop, batch_per_device), dtype=dtype, device=mesh.device)
+        vt = torch.empty((num_tau, batch_per_device), dtype=dtype, device=mesh.device)
+        run = compiled.static_pass(batch_per_device)
+
+        def body() -> torch.Tensor:
+            means = []
+            for gen in gens:
+                vk.normal_(generator=gen)
+                vt.uniform_(generator=gen).mul_(beta)
+                means.append(run(vk, vt).sum(dim=1) / batch_per_device)
+            return mesh.mean(axis_name, means)
+
+        return SeededGraph(body, gens)
+
+    graph_of = one_shape(build)
+
+    def step_jit(seed: int, batch_per_device: int) -> torch.Tensor:
+        return graph_of(batch_per_device).replay([rank_seed(seed, r) for r in ranks]).clone()
+
+    return step_jit
