@@ -6,8 +6,8 @@ and its row-access probe path on the card and checks them.  Phases, one
 output line or more each:
 
 1. the card's name and power limit (nvidia-smi);
-2. the build of both CUDA libraries from ``feynmandiagram_tpu_torch/csrc``,
-   one nvcc each, and of the host helper ``graphcore.cpp`` (g++), all
+2. the build of the three CUDA libraries from ``feynmandiagram_tpu_torch/csrc``
+   (the level kernel, the two leaf kernels, the probes), one nvcc each, and of the host helper ``graphcore.cpp`` (g++), all
    started together; the ``host:`` lines say whether the native helper or
    its numpy path ran;
 3. the kernel against its plain PyTorch version on the card, on random
@@ -19,7 +19,19 @@ output line or more each:
 4. the slice: order-4 Gamma4 -> optimize -> ``compile_evaluator`` on cuda in
    float32 for sum_mode 'fused' and 'bucketed', against the port's plain
    path in float64 on the card, with the kernel's launch count per pass,
-   which must be the number of levels that hold buckets;
+   which must be the number of levels that hold buckets or plans (a
+   ``ProdPlan`` or ``PowerPlan`` rides the level launch), and the leaf
+   kernels' (once each);
+4'. the leaf phase's two kernels (``csrc/leaf_eval.cu``: ``leaf_prep``,
+   ``leaf_values``) against their plain versions on the card (``leaf
+   kernel:`` lines), on the leaf tables of order-4 Gamma4 here, of config 4,
+   GV sigma 6 and Gamma4 orders 5 and 6 in their phases: batch 4096 on
+   float32 samples and 4097 on float64 ones, computing in float64 and
+   float32, leaves stored in float32 and float64, each element within
+   LEAF_ULPS ulps of its type (bit for bit expected); each kernel, its plain
+   version and the phase back to back beside their bounds (``leaf time:``
+   lines); by the profiler's names, one leaf phase is the two kernels once
+   each and nothing else;
 4a. the scale-out layer (``parallel``, ``utils.initialize_distributed``),
    ``scale-out:`` lines: NCCL with one rank over a ``file://`` store, where
    ``shard_compiled`` of the fused slice and ``make_mc_step`` must equal the
@@ -40,7 +52,7 @@ output line or more each:
 4b. the Hubbard atom (``models.hubbard_atom``) at beta 2.3, U 1, mu 0, the
    lowest Matsubara frequency, orders 1-5, float32: the kernel's launches
    in one pass of each order against the number of levels that hold
-   buckets (0 / 0 / 1 / 8 / 12), the pass through the kernel against the
+   buckets or plans (2 / 5 / 9 / 13 / 17), the pass through the kernel against the
    plain path in float64 on the same seeded varT, ``sigma_mc`` against
    the closed-form series (order 1 exactly -U/2, orders 2-5 within 5
    stderr), and each order's device and wall time of one pass;
@@ -48,7 +60,7 @@ output line or more each:
    (``benchmarks.bench_config4.config4_roots``: Σ -> ``taylorAD([2, 2])``
    -> 36 roots whose leaves carry G and V derivative orders 0-2, generated
    once and lowered fused and bucketed), float32 on cuda: the level
-   launches of a pass against the levels that hold buckets, no launch
+   launches of a pass against the levels that hold buckets or plans, no launch
    bucket by bucket, the pass against the port's float64 plain path (worst
    root and its order tuple), fused at batch 4096, 4097 and 8192, bucketed
    at 256; for the fused lowering, Monte-Carlo samples/s at batch 8192 and
@@ -69,7 +81,8 @@ output line or more each:
    the library yardstick, the fused pass's device time in bins of the
    launch's bytes, Monte-Carlo samples/s of both slices with their launch
    counts and the device's idle share (1 - the profiler's busy time / the
-   wall; a busy time above the wall fails as a faulty reading);
+   wall; a busy time more than JIT_BUSY_SLACK above the wall fails as a
+   faulty reading);
 5a. GV-table diagrams from the port's bundled tables (``gv:`` lines): Σ at
    order 6 (``diagsGV`` -> ``optimize_inplace(1)`` -> ``compile_evaluator``)
    fused and bucketed at batch 4096 in float32, its slots, edges, levels
@@ -138,7 +151,8 @@ output line or more each:
    computes in float64 and rounds once), every level against its plain
    version, the level launches beside their bound and, bucketed, beside ``torch.sparse.mm``,
    the Monte-Carlo lines, and from order 5 on where a pass's device time
-   goes (leaf phase, zero-fill of w, level launches, plain ProdPlans).  The
+   goes (leaf phase, zero-fill of w, level launches, plain ProdPlans and
+   PowerPlans).  The
    scripts ``scaling`` (order 3, local meshes of 1, 2 and 4 ranks),
    ``scan_merge`` and ``probe_split`` (order 4) and ``probe_structure`` (the
    order-5 fused lowering); config 5 at its own order 5
@@ -190,7 +204,7 @@ output line or more each:
    PyTorch formulation of the padded sum bucket against it, and each one's
    device time beside its bound.
 
-Then the run's seconds, one JSON line on the ten kernels, and the last line
+Then the run's seconds, one JSON line on the twelve kernels, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, and so
 does a machine without CUDA: nothing runs on the CPU instead.  ``jax`` and
 the JAX package ``feynmandiagram_tpu`` are blocked from import: the port
@@ -224,6 +238,11 @@ TF32_REL = 2.0 ** -11   # one-hot select on tensor cores: one term of w rounded 
 # select as a read (case_onehot, of record) is exact, the TF32 product not
 ONEHOT_REL = {"onehot": 0.0, "onehot_mma": TF32_REL}
 TRACE_TRIES = 5         # profiler traces taken before one without device time fails
+# kernels of torch.cuda._sleep launched at the start of every profiler trace
+# and left out of its counts: on the card a trace loses its first few kernel
+# records (the first 8 of a Monte-Carlo pass's, which since the leaf phase is
+# two kernels include level kernels)
+PROFILE_LEAD = 64
 QUEUED_REPS = 5         # timed repeats of queued_ms, of which the median counts
 QUEUED_BUCKETS = 16     # buckets timed in one queued_ms call
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet: the rate the bounds are taken at
@@ -236,7 +255,15 @@ N_GRAPH = 4
 SHARD_PLAN = {"fused": ((11680, 1846, 64720, 1.092, 0.432), 13),
               "bucketed": ((22590, 3083, 108576, 1.059, 0.190), 16)}
 SHARD_MC_ITERS, SHARD_MC_TOL = 4, 1e-6
-PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12}   # same sheet, dense
+# same sheet, dense; float64 outside the tensor cores
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "float64": 34e12}
+# the leaf kernels against their plain version on the card: the most a value
+# may differ, in ulps of its type (the scratch table's compute type, the
+# leaves' storage type).  The plain version repeats the kernels' operations in
+# their order, so 0 is expected; 1 allows a last-bit difference of CUDA's and
+# PyTorch's exp or log1p
+LEAF_ULPS = 1
+LEAF_KERNELS = ("leaf_prep_kernel", "leaf_values_kernel")
 # the GV phase: slots, edges, levels and buckets of the order-6 sigma
 # lowerings on the CPU, the source export's limit, and the share of a pass's
 # busy time the profiler's phases must hold
@@ -264,15 +291,16 @@ BIG_PASSES = ((5, "fused", 65536), (5, "bucketed", 32768), (6, "fused", 16384),
 WINDOW = 512
 CHILD_TIMEOUT = 900
 MC_RUN_MS = 400.0       # the least length of a timed Monte-Carlo run, where passes are long
-PROFILE_COVER = 0.8
+PROFILE_COVER = 0.85
 # the jit phase: the Monte-Carlo batches of its captured cases, and the host's
 # calls timed behind a sleep kernel of JIT_SLEEP_CYCLES (few enough that the
 # launch queue never fills while the device sleeps)
 JIT_MC_BATCHES = (4096, 8192, 16384)
 JIT_HOST_CALLS, JIT_SLEEP_CYCLES = 3, 2 ** 28
 # busy (profiler) and wall (CUDA events) are read in different runs of a
-# pass: a captured pass leaves the device no idle time, and its busy time
-# then reads up to a few tenths of a percent above its wall
+# pass: a captured pass, and an eager one that is device-bound (Gamma4 order
+# 6 since the leaf phase is two kernels), leaves the device no idle time, and
+# its busy time then reads up to a few tenths of a percent above its wall
 JIT_BUSY_SLACK = 0.02
 RAGGED_BATCH = 4097     # no multiple of 4: rows lose their 16-byte alignment
 # the jit sharded phase: the batches checked on the 2 x 2 graph x batch mesh
@@ -297,12 +325,12 @@ EMPTY_GRIDS = ((1, 32), (16, 128))       # (blocks, threads) of the empty kernel
                                          # at B 512
 BIG_COPY = (40000, 32768)                # S x B f32, 5.2 GB: byte offsets past 2^32
 # the Hubbard atom's phase: beta, U, the orders the series knows, each
-# order's levels that hold buckets (the kernel's launches a pass), the batch
+# order's levels that hold buckets or plans (the kernel's launches a pass), the batch
 # of a pass, the Monte-Carlo chunks, and each order's stderr floor (as in
 # tests/test_hubbard_atom.py; order 5 as order 4)
 HUBBARD_BETA, HUBBARD_U = 2.3, 1.0
 HUBBARD_ORDERS = (1, 2, 3, 4, 5)
-HUBBARD_BUCKET_LEVELS = {1: 0, 2: 0, 3: 1, 4: 8, 5: 12}
+HUBBARD_BUCKET_LEVELS = {1: 2, 2: 5, 3: 9, 4: 13, 5: 17}
 HUBBARD_BATCH, HUBBARD_CHUNKS = 65536, 16
 HUBBARD_FLOOR = {2: 1e-4, 3: 3e-4, 4: 5e-4, 5: 5e-4}
 ORDER1_REL = 1e-6       # order 1 against -U/2, float32: relative, and absolute for Im
@@ -375,7 +403,7 @@ def main() -> None:
     from feynmandiagram_tpu_torch.backends.compile import leafmap_of
     from feynmandiagram_tpu_torch.benchmarks import card_name, median_ms, probe_gather
     from feynmandiagram_tpu_torch.benchmarks import probe_mosaic_caps as pm
-    from feynmandiagram_tpu_torch.ops import build, kernels
+    from feynmandiagram_tpu_torch.ops import build, kernels, leaf_eval
     from feynmandiagram_tpu_torch.ops.evaluator import level_buckets, make_evaluator
     from feynmandiagram_tpu_torch.ops.lowering import lower
     from feynmandiagram_tpu_torch.ops.leaf_eval import make_leaf_evaluator
@@ -406,11 +434,11 @@ def main() -> None:
 
     # -- 2. build, one nvcc per source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         host_lib = pool.submit(native.native_available)
-        list(pool.map(build.build, ("bucket_gather_reduce", "row_probes")))
+        list(pool.map(build.build, ("bucket_gather_reduce", "leaf_eval", "row_probes")))
         host_path = "native graphcore library (g++)" if host_lib.result() else "numpy path"
-    print(f"build: bucket_gather_reduce, row_probes (nvcc) and graphcore (g++) built in "
+    print(f"build: bucket_gather_reduce, leaf_eval, row_probes (nvcc) and graphcore (g++) built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     print(f"host: CSE and levelling of the lowering run on the {host_path}", flush=True)
 
@@ -518,7 +546,7 @@ def main() -> None:
         return [b for lvl in low.levels for b in level_buckets(lvl)]
 
     def tables_of(low, fac_dtype):
-        """The packed tables of every level of low that holds buckets."""
+        """The packed tables of every level of low that holds buckets or plans."""
         return [kernels.pack_level(level_buckets(lvl), dev, fac_dtype)
                 for lvl in low.levels if level_buckets(lvl)]
 
@@ -601,16 +629,20 @@ def main() -> None:
 
     phase("level checks")
 
+    def leaf_launches():
+        """The launch counts of the two leaf kernels."""
+        return leaf_eval.leaf_prep.launches, leaf_eval.leaf_values.launches
+
     def check_slice(c, samples, label, names=None, diagnose=None, misses=None):
         """The float32 pass of c through the kernel against the port's plain
         path in float64 on the card, on each (varK, varT) of samples: a
-        pass must launch the kernel once per level that holds buckets and
+        pass must launch the kernel once per level that holds buckets or plans and
         never bucket by bucket, and each root's max|d|/max|ref| must be
         within SLICE_TOL (names: each root's name in the failure;
         diagnose(c, varK, varT, root, ref) runs on a miss and returns a dict
         of what it found).  A miss fails the run here, or, given the list
         misses, is added to it as a dict and fails the run at its end.
-        Returns the levels that hold buckets and, per batch, (each root's
+        Returns the levels that hold buckets or plans and, per batch, (each root's
         error, max|d|/max|ref| over all roots)."""
         n_levels = sum(1 for lvl in c.lowered.levels if level_buckets(lvl))
         n_roots = len(c.lowered.root_slots)
@@ -623,12 +655,16 @@ def main() -> None:
             ref = ref_graph(ref_leaf(vk, vt))
             torch.cuda.synchronize()
             kernel_fn.launches = level_fn.launches = 0
+            leaf_eval.leaf_prep.launches = leaf_eval.leaf_values.launches = 0
             got = c(vk, vt)
             torch.cuda.synchronize()
             if level_fn.launches != n_levels or kernel_fn.launches != 0:
                 fail(f"{label}, batch {batch}: {level_fn.launches} level and "
                      f"{kernel_fn.launches} bucket launches in a pass, expected {n_levels} (one "
-                     f"per level that holds buckets) and 0")
+                     f"per level that holds buckets or plans) and 0")
+            if leaf_launches() != (1, 1):
+                fail(f"{label}, batch {batch}: leaf_prep and leaf_values launched "
+                     f"{leaf_launches()} times in a pass, expected once each")
             if got.shape != (n_roots, batch) or not torch.isfinite(got).all():
                 fail(f"{label}, batch {batch}: output not finite or of shape {tuple(got.shape)}")
             d = (got.double() - ref).abs()
@@ -655,6 +691,8 @@ def main() -> None:
     for mode in ("fused", "bucketed"):
         n_levels, errs = check_slice(compiled[mode], [(varK, varT)], f"{mode} slice")
         launches[mode] = n_levels
+        if mode == "fused":    # the main path's pass: each leaf kernel's launches
+            leaf_main = leaf_launches()
         rel, scale_err = errs[BATCH]
         print(f"slice: {mode} f32 kernel vs f64 plain on the card, batch {BATCH}: "
               f"{n_levels} kernel launches per pass ({len(buckets_of(compiled[mode].lowered))} "
@@ -715,20 +753,41 @@ def main() -> None:
                 fail("the host did not enqueue a timed call within a sleep of 2^32 cycles")
         return np.median(np.asarray(runs), axis=0)
 
+    lead_names = set()
+
+    def kernel_names(fn):
+        """The names of the device work of PROFILE_LEAD calls of fn."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD):
+                fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()
+                 if str(e.device_type).endswith("CUDA") and not e.is_user_annotation}
+        if not names:
+            fail("the profiler saw no kernel of torch.cuda._sleep")
+        return names
+
     def profile_calls(fn, n=10):
         """The profiler's device time per call of fn, by kernel name, for
         calls that wait for the device or copy from the host (the
         Monte-Carlo pass, the probes' plain versions): each kernel's own
         time summed over n calls, after one untraced call; and the level
         kernels a call, counted by name (a CUDA graph's replay launches
-        kernels that no launch counter sees).  The host idles 10 ms at
-        each end of the trace (without that the profiler on the card
-        dropped the first kernels of short traces); a trace without device
-        time is taken again, up to TRACE_TRIES times."""
+        kernels that no launch counter sees), and the leaf kernels a call by
+        name (LEAF_KERNELS, in order).  Each trace starts with PROFILE_LEAD
+        sleep kernels, left out of what it returns: the profiler on the card
+        drops the first kernel records of a trace.  The host idles 10 ms at
+        each end of the trace; a trace without device time is taken again,
+        up to TRACE_TRIES times."""
+        if not lead_names:   # the sleep kernel's names, from a trace of its own
+            lead_names.update(kernel_names(lambda: torch.cuda._sleep(1)))
         for _ in range(TRACE_TRIES):
             fn()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(PROFILE_LEAD):
+                    torch.cuda._sleep(1)
+                torch.cuda.synchronize()
                 time.sleep(0.01)
                 for _ in range(n):
                     fn()
@@ -737,12 +796,14 @@ def main() -> None:
             # the hot path's profiler scopes show on the device as annotation
             # spans over their kernels: those are not kernels
             events = [e for e in prof.key_averages()
-                      if str(e.device_type).endswith("CUDA") and not e.is_user_annotation]
+                      if str(e.device_type).endswith("CUDA") and not e.is_user_annotation
+                      and e.key not in lead_names]
             by_kernel = {e.key: getattr(e, "self_device_time_total", 0) / n / 1e3
                          for e in events}
             if sum(by_kernel.values()) > 0:
                 return by_kernel, sum(e.count for e in events
-                                      if "gather_reduce_kernel" in e.key) / n
+                                      if "gather_reduce_kernel" in e.key) / n, tuple(
+                    sum(e.count for e in events if k in e.key) / n for k in LEAF_KERNELS)
         fail(f"the profiler saw no device time in {TRACE_TRIES} traces")
 
     def device_ms_by_kernel(fn, n=10):
@@ -755,7 +816,7 @@ def main() -> None:
         return sum(device_ms_by_kernel(fn, n).values())
 
     def level_bounds(low, batch, elsize):
-        """Per level that holds buckets, the least time the card could take
+        """Per level that holds buckets or plans, the least time the card could take
         and what sets it: bytes (every distinct row the level's buckets read
         and every row they write, once each, over the memory rate) against
         operations (a multiply per operand and an add per term and element,
@@ -803,10 +864,11 @@ def main() -> None:
     def mc_lines(c, para, batches, label):
         """Monte-Carlo samples/s of c's float32 pass at each batch, one line
         each: the level launches of a pass (over three passes of mc_run they
-        must be the levels that hold buckets, none bucket by bucket), the
+        must be the levels that hold buckets or plans, none bucket by bucket), the
         wall and the profiler's device busy time of one pass, the idle share
         1 - busy / wall, and the level launches' share of busy.  A busy time
-        above the wall is a faulty clock reading and fails.  A run of
+        more than JIT_BUSY_SLACK above the wall is a faulty clock reading and
+        fails.  A run of
         mc_samples_per_s is 100 passes, or as many as last MC_RUN_MS where a
         pass is longer (at least 10)."""
         n_levels = sum(1 for lvl in c.lowered.levels if level_buckets(lvl))
@@ -820,11 +882,15 @@ def main() -> None:
                 mc_run(c.fn, iters=1, seed=SEED, **mc_kw)
 
             level_fn.launches = kernel_fn.launches = 0
+            leaf_eval.leaf_prep.launches = leaf_eval.leaf_values.launches = 0
             mc_run(c.fn, iters=3, seed=SEED, **mc_kw)
             torch.cuda.synchronize()
             if level_fn.launches != 3 * n_levels or kernel_fn.launches != 0:
                 fail(f"{label} mc_run: {level_fn.launches} level and {kernel_fn.launches} "
                      f"bucket launches in 3 passes, expected {3 * n_levels} and 0")
+            if leaf_launches() != (3, 3):
+                fail(f"{label} mc_run: leaf kernels launched {leaf_launches()} times in 3 "
+                     f"passes, expected 3 each")
             by_kernel = device_ms_by_kernel(one)
             busy = sum(by_kernel.values())
             level_busy = sum(t for k, t in by_kernel.items() if "gather_reduce_kernel" in k)
@@ -836,12 +902,198 @@ def main() -> None:
                   f"a pass; per pass wall {wall:.4f} ms, device busy {busy:.4f} ms (idle share "
                   f"{1 - busy / wall:.3f}), level launches {level_busy:.4f} ms "
                   f"({level_busy / busy:.3f} of busy)  [{smi}]", flush=True)
-            if busy > wall:
-                fail(f"{label} batch {batch}: device busy {busy:.4f} ms above the wall "
-                     f"{wall:.4f} ms of the same pass: a faulty clock reading")
+            if busy > wall * (1 + JIT_BUSY_SLACK):
+                fail(f"{label} batch {batch}: device busy {busy:.4f} ms more than "
+                     f"{JIT_BUSY_SLACK:g} above the wall {wall:.4f} ms of the same pass: a "
+                     f"faulty clock reading")
             out[batch] = {"samples_per_s": sps, "busy_ms": busy, "wall_ms": wall,
                           "level_busy_ms": level_busy, "passes_a_run": iters}
         return out
+
+    # -- 4'. the leaf kernels against their plain versions, beside their bounds
+    def ulps(k, p):
+        """Elements of k that differ from p (one dtype, float32 or float64),
+        and the largest difference in ulps: the distance of the two bit
+        patterns, which counts ulps between values of one sign."""
+        bits = k.view(torch.int32).long() if k.dtype == torch.float32 else k.view(torch.int64)
+        pbits = p.view(torch.int32).long() if p.dtype == torch.float32 else p.view(torch.int64)
+        d = (bits - pbits).abs()
+        return int((k != p).sum()), int(d.max()) if d.numel() else 0
+
+    def check_leaf_kernels(label, tables, n_loop, n_tau):
+        """Both leaf kernels against their plain versions on the card, on
+        the leaf tables of one lowering: batch BATCH with float32 samples
+        (the Monte-Carlo path's) and RAGGED_BATCH with float64 samples,
+        computing in float64 and in float32, the leaves stored in float32
+        and in float64; leaf_values runs on the plain version's scratch
+        table.  Fails where an element differs by more than LEAF_ULPS ulps
+        of its type or is not finite; returns the worst ulps, the elements
+        that differ, those compared and the largest |kernel - plain|."""
+        worst = {"ulps": 0, "differ": 0, "elements": 0, "max_abs_err": 0.0}
+        for batch, in_dtype in ((BATCH, torch.float32), (RAGGED_BATCH, torch.float64)):
+            vk = torch.randn((3, n_loop, batch), generator=dev_gen, device=dev).to(in_dtype)
+            vt = (torch.rand((n_tau, batch), generator=dev_gen, device=dev) * BETA).to(in_dtype)
+            for comp in (torch.float64, torch.float32):
+                plan = leaf_eval.leaf_plan(tables, beta=BETA, kF=KF, lam=LAM, device=dev,
+                                           compute_dtype=comp)
+                sk = torch.empty((plan.scratch_rows(), batch), dtype=comp, device=dev)
+                sp = torch.empty_like(sk)
+                leaf_eval.leaf_prep(plan, vk, vt, sk)
+                leaf_eval.leaf_prep_plain(plan, vk, vt, sp)
+                parts = [("scratch", sk, sp)]
+                for store in (torch.float32, torch.float64):
+                    lk = torch.empty((plan.num_leaves, batch), dtype=store, device=dev)
+                    lp = torch.empty_like(lk)
+                    leaf_eval.leaf_values(plan, sp, lk)
+                    leaf_eval.leaf_values_plain(plan, sp, lp)
+                    parts.append((f"leaves in {type_name(store)}", lk, lp))
+                torch.cuda.synchronize()
+                for what, k, p in parts:
+                    n_diff, u = ulps(k, p)
+                    err = (k.double() - p.double()).abs().max().item()
+                    if u > LEAF_ULPS or not torch.isfinite(k).all():
+                        fail(f"leaf kernel: {label}, batch {batch}, {type_name(in_dtype)} "
+                             f"samples, compute {type_name(comp)}, {what}: {n_diff} elements "
+                             f"differ from the plain version, by up to {u} ulps (limit "
+                             f"{LEAF_ULPS}), max|diff| {err:.3e}, finite "
+                             f"{bool(torch.isfinite(k).all())}")
+                    worst["ulps"] = max(worst["ulps"], u)
+                    worst["differ"] += n_diff
+                    worst["elements"] += k.numel()
+                    worst["max_abs_err"] = max(worst["max_abs_err"], err)
+                del sk, sp, parts, lk, lp
+            del vk, vt
+        torch.cuda.empty_cache()
+        print(f"leaf kernel: {label}: {tables.num_leaves} leaf rows, kernel vs plain on the card "
+              f"at batch {BATCH} (float32 samples) and {RAGGED_BATCH} (float64 samples), "
+              f"computing in float64 and float32, scratch table and leaves stored in float32 "
+              f"and float64: {worst['differ']} of {worst['elements']} elements differ, worst "
+              f"{worst['ulps']} ulps of the element's type (limit {LEAF_ULPS}; bit for bit "
+              f"expected: the plain version repeats the kernels' operations in order), max|diff| "
+              f"{worst['max_abs_err']:.3e}", flush=True)
+        return worst
+
+    def leaf_ops(plan, tables):
+        """The operations of each leaf kernel on one column (an exp or a
+        log1p counted as one): leaf_prep's loop sums, |q|^2 and, with
+        propagators, eps and softplus per basis row, and the time
+        difference, its cut and tau1 per pair; leaf_values' per leaf row by
+        kind and order (csrc/leaf_eval.cu's operations)."""
+        n_loop, poly = plan.basis.shape[1], plan.polys
+        prep = plan.n_basis * (3 * (2 * n_loop - 1) + 5 + (8 if plan.n_pairs else 0)) \
+            + plan.n_pairs * 5
+
+        def tower(n):
+            ops = 12 + 7 + 3 + 2
+            for k in range(2, n + 1):
+                ops += 3 + sum(int(poly[k, 1 + 3 * t]) + int(poly[k, 2 + 3 * t]) + 1
+                               for t in range(poly[k, 0]))
+            return ops + sum(3 * m + 2 for m in range(n))
+
+        per_kind = {leaf_eval.KIND_ONE: lambda n: 0, leaf_eval.KIND_G0: lambda n: 5,
+                    leaf_eval.KIND_G_TOWER: tower, leaf_eval.KIND_V_LAMBDA: lambda n: 4 + n,
+                    leaf_eval.KIND_V_TAYLOR: lambda n: 3 + n}
+        values = sum(per_kind[kind](order) * len(rows) for kind, order, rows, _, _ in plan.groups)
+        return prep, values
+
+    def leaf_bounds(plan, tables, batch, in_size, out_size):
+        """The bound of each leaf kernel and of the phase at batch: the
+        larger of bytes (inputs read once, outputs written once) over the
+        memory rate and operations over the compute type's peak.
+        leaf_prep reads varK and varT and writes the scratch table;
+        leaf_values reads the scratch rows that some leaf uses and writes
+        the leaves; the phase reads varK, varT and writes the leaves."""
+        c_size = plan.basis.element_size()
+        peak = PEAK_FLOPS[type_name(plan.compute_dtype)]
+        n_tau = int(max(tables.tau_in.max(), tables.tau_out.max()))
+        nb, npair = plan.n_basis, plan.n_pairs
+        written = nb + (2 * nb if npair else 0) + 3 * npair
+        used = set()
+        for kind, _, _, brow, pair in plan.groups:
+            b, q = set(brow.tolist()), set(pair.tolist())
+            if kind == leaf_eval.KIND_G0:
+                used |= {(1, x) for x in b} | {(2, x) for x in b} | {(3, x) for x in q} \
+                    | {(4, x) for x in q}
+            elif kind == leaf_eval.KIND_G_TOWER:
+                used |= {(1, x) for x in b} | {(5, x) for x in q}
+            elif kind != leaf_eval.KIND_ONE:
+                used |= {(0, x) for x in b}
+        inputs = (3 * plan.basis.shape[1] + n_tau) * batch * in_size
+        ops = leaf_ops(plan, tables)
+        out = {}
+        for name, n_bytes, n_ops in (
+                ("leaf_prep", inputs + written * batch * c_size, ops[0] * batch),
+                ("leaf_values", (len(used) * c_size + plan.num_leaves * out_size) * batch,
+                 ops[1] * batch),
+                ("phase", inputs + plan.num_leaves * batch * out_size, sum(ops) * batch)):
+            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak
+            out[name] = {"ms": 1e3 * max(t_bytes, t_ops),
+                         "by": "bytes" if t_bytes >= t_ops else "operations",
+                         "bytes": n_bytes, "operations": n_ops}
+        return out
+
+    def leaf_times(label, c, n_loop, n_tau):
+        """Each leaf kernel and its plain version back to back (queued_ms)
+        at batch BATCH on float32 samples, leaves in float32 (the main
+        path's types), beside leaf_bounds; and the phase as c.leaf_fn runs
+        it.  One line; returns the numbers."""
+        plan = c.leaf_fn.plan
+        vk = torch.randn((3, n_loop, BATCH), generator=dev_gen, device=dev)
+        vt = torch.rand((n_tau, BATCH), generator=dev_gen, device=dev) * BETA
+        scratch = torch.empty((plan.scratch_rows(), BATCH), dtype=plan.compute_dtype,
+                              device=dev)
+        out = torch.empty((plan.num_leaves, BATCH), dtype=torch.float32, device=dev)
+        t = {"leaf_prep": queued_ms(lambda: leaf_eval.leaf_prep(plan, vk, vt, scratch)),
+             "leaf_values": queued_ms(lambda: leaf_eval.leaf_values(plan, scratch, out)),
+             "leaf_prep_plain": queued_ms(lambda: leaf_eval.leaf_prep_plain(plan, vk, vt,
+                                                                            scratch)),
+             "leaf_values_plain": queued_ms(lambda: leaf_eval.leaf_values_plain(plan, scratch,
+                                                                                out)),
+             "phase": queued_ms(lambda: c.leaf_fn(vk, vt, out=out))}
+        b = leaf_bounds(plan, c.tables, BATCH, 4, 4)
+        print(f"leaf time: {label} batch {BATCH}, float32 samples and leaves, compute "
+              f"{type_name(plan.compute_dtype)}, device ms back to back (queued_ms): leaf_prep "
+              f"{t['leaf_prep']:.4f} (bound {b['leaf_prep']['ms']:.4f}, by "
+              f"{b['leaf_prep']['by']}; {b['leaf_prep']['ms'] / t['leaf_prep']:.3f} of it), "
+              f"plain {t['leaf_prep_plain']:.4f}; leaf_values {t['leaf_values']:.4f} (bound "
+              f"{b['leaf_values']['ms']:.4f}, by {b['leaf_values']['by']}; "
+              f"{b['leaf_values']['ms'] / t['leaf_values']:.3f}), plain "
+              f"{t['leaf_values_plain']:.4f}; the phase as make_leaf_evaluator runs it "
+              f"{t['phase']:.4f} (bound of the phase, samples read and leaves written once, "
+              f"{b['phase']['ms']:.4f}); {plan.num_leaves} leaf rows, {plan.n_basis} basis "
+              f"rows, {plan.n_pairs} pairs of times  [{smi}]", flush=True)
+        del vk, vt, scratch, out
+        return {"ms": t, "bounds": b}
+
+    def once_each(n_leaf):
+        """Whether each leaf kernel ran once a call by the profiler's counts,
+        read rounded up: a trace may lose a kernel (PERF.md, section 6), a
+        second launch shows as more than one."""
+        return tuple(math.ceil(x - 1e-9) for x in n_leaf) == (1, 1)
+
+    def leaf_phase_kernels(label, c, n_loop, n_tau):
+        """By the profiler's names: one call of c.leaf_fn on float32
+        samples launches the two leaf kernels once each and nothing else."""
+        vk = torch.randn((3, n_loop, BATCH), generator=dev_gen, device=dev)
+        vt = torch.rand((n_tau, BATCH), generator=dev_gen, device=dev) * BETA
+        out = torch.empty((c.tables.num_leaves, BATCH), dtype=torch.float32, device=dev)
+        by_kernel, _, n_leaf = profile_calls(lambda: c.leaf_fn(vk, vt, out=out))
+        others = [k for k in by_kernel if not any(n in k for n in LEAF_KERNELS)]
+        print(f"leaf kernel: {label}, one leaf phase by the profiler's names: "
+              f"{n_leaf[0]:.1f} leaf_prep and {n_leaf[1]:.1f} leaf_values kernels a call, "
+              f"other device work: {others or 'none'}", flush=True)
+        if not once_each(n_leaf) or others:
+            fail(f"leaf kernel: {label}: the leaf phase ran {n_leaf} leaf kernels and {others} "
+                 f"besides, expected the two kernels once each and nothing else")
+
+    leaf_report = {"checks": {}, "times": {}}
+    c = compiled["fused"]
+    leaf_report["checks"]["gamma4 order 4"] = check_leaf_kernels(
+        "order-4 Gamma4", c.tables, para.totalLoopNum, para.totalTauNum)
+    leaf_report["times"]["gamma4 order 4"] = leaf_times("order-4 Gamma4 fused", c,
+                                                        para.totalLoopNum, para.totalTauNum)
+    leaf_phase_kernels("order-4 Gamma4 fused", c, para.totalLoopNum, para.totalTauNum)
+    phase("leaf kernels")
 
     # -- 4a. scale-out: NCCL with one rank, the graph-sharded pass on a local mesh
     import tempfile
@@ -990,7 +1242,7 @@ def main() -> None:
     def serve_check(low_s, tables_s, label):
         """The graph-sharded MC step of examples/config5_serving.py on a
         local 4 x 2 mesh at BATCH a device, SHARD_MC_ITERS iterations, on
-        low_s: its level launches (one a level that holds buckets, a rank,
+        low_s: its level launches (one a level that holds buckets or plans, a rank,
         a batch rank and an iteration) and its means against the unsharded
         evaluator on the same draws, bit for bit or within SHARD_MC_TOL.
         Returns the step's planner stats and whether the means were bit for
@@ -1132,7 +1384,7 @@ def main() -> None:
         if n_launch != HUBBARD_BUCKET_LEVELS[order] or kernel_fn.launches != 0:
             fail(f"Hubbard order {order}: {n_launch} level and {kernel_fn.launches} bucket "
                  f"launches in a pass, expected {HUBBARD_BUCKET_LEVELS[order]} (one per level "
-                 f"that holds buckets) and 0")
+                 f"that holds buckets or plans) and 0")
         if (hub_got.shape != (2, HUBBARD_BATCH) or hub_got.dtype != torch.float32
                 or not torch.isfinite(hub_got).all()):
             fail(f"Hubbard order {order}: output {hub_got.dtype} {tuple(hub_got.shape)} or not "
@@ -1194,6 +1446,10 @@ def main() -> None:
               f"{n_plans['fused']} FusedBuckets, {n_plans['sum_buckets']} SumBuckets, "
               f"{n_plans['prods']} ProdPlans, {n_plans['pows']} PowerPlans", flush=True)
     del roots4
+    leaf_report["checks"]["config 4"] = check_leaf_kernels(
+        "config 4", c4["fused"].tables, para4.totalLoopNum, para4.totalTauNum)
+    leaf_report["times"]["config 4"] = leaf_times("config 4 fused", c4["fused"],
+                                                  para4.totalLoopNum, para4.totalTauNum)
     phase("config 4: host")
     # fused at the batches of the checks and of the timed passes below, the
     # bucketed lowering at one small batch only, to keep the run short
@@ -1207,7 +1463,7 @@ def main() -> None:
             k = int(np.argmax(rel))
             print(f"config4: {mode} f32 kernel vs f64 plain on the card, batch {batch}: "
                   f"{n_levels} level launches a pass ({n_levels} levels of {len(low4.levels)} "
-                  f"hold buckets; {len(orders4)} roots); worst per-root max|d|/max|ref| "
+                  f"hold buckets or plans; {len(orders4)} roots); worst per-root max|d|/max|ref| "
                   f"{rel[k]:.3e} at root {k}, (g_order, v_order) {orders4[k]} (limit "
                   f"{SLICE_TOL:g})", flush=True)
         config4[mode] = {"launches_per_pass": n_levels,
@@ -1315,14 +1571,18 @@ def main() -> None:
     phase("ED oracle")
 
     # -- 5. throughput and per-pass times
+    def sum_buckets_of(low):
+        """The SumBuckets of low as buckets (n_op 1), level by level: the
+        launches' part that one sparse product each computes."""
+        return [(np.asarray(sb.idx)[None], np.asarray(sb.fac), sb.start)
+                for lvl in low.levels for sb in lvl.sum_buckets]
+
     def sparse_buckets(low):
-        """Each n_op = 1 bucket of low as the [count, num_slots] CSR matrix
-        whose product with w is the bucket's function."""
+        """Each SumBucket of low as the [count, num_slots] CSR matrix whose
+        product with w is the bucket's function."""
         mats = []
-        for idx, fac, _ in buckets_of(low):
-            n_op, arity, count = idx.shape
-            if n_op != 1:
-                fail("sparse_buckets: a bucket of n_op > 1 is no single sparse product")
+        for idx, fac, _ in sum_buckets_of(low):
+            _, arity, count = idx.shape
             rows = np.tile(np.arange(count), arity)
             coo = torch.sparse_coo_tensor(
                 torch.as_tensor(np.stack([rows, idx[0].reshape(-1)]), device=dev),
@@ -1429,9 +1689,10 @@ def main() -> None:
         if mode == "bucketed":
             mats = sparse_buckets(c.lowered)
             outs = [torch.sparse.mm(m, w) for m in mats]
-            for (idx, fac, start), out in zip(bl, outs):
+            for (idx, fac, start), out in zip(sum_buckets_of(c.lowered), outs):
                 wk = w.clone()
-                kernel_fn(wk, idx, fac, start)
+                kernel_fn(wk, torch.as_tensor(np.ascontiguousarray(idx, np.int32), device=dev),
+                          torch.as_tensor(np.ascontiguousarray(fac), device=dev).float(), start)
                 d = (out - wk[start:start + out.shape[0]]).abs().max().item()
                 if not d <= 1e-4 * out.abs().max().item():
                     fail(f"torch.sparse.mm differs from the kernel on the bucket at row {start}: "
@@ -1537,6 +1798,11 @@ def main() -> None:
         built = time.perf_counter() - t0
         counts = plan_counts(c6.lowered)
         n_levels, errs = check_slice(c6, [gv_samples(sizes6, BATCH)], f"gv sigma 6 {mode}")
+        if mode == "fused":
+            leaf_report["checks"]["GV sigma 6"] = check_leaf_kernels(
+                "GV sigma 6", c6.tables, sizes6.totalLoopNum, sizes6.totalTauNum)
+            leaf_report["times"]["GV sigma 6"] = leaf_times(
+                "GV sigma 6 fused", c6, sizes6.totalLoopNum, sizes6.totalTauNum)
         rel = errs[BATCH][0]
         print(f"gv: sigma 6 {mode}, lowered in {built:.1f} s: {counts[0]} slots, {counts[1]} "
               f"edges, {counts[2]} levels, {counts[3]} buckets (the CPU lowering's "
@@ -1564,7 +1830,7 @@ def main() -> None:
         lib_line = ""
         if mode == "bucketed":
             mats = sparse_buckets(c6.lowered)
-            for (idx, fac, start), mat in zip(buckets_of(c6.lowered), mats):
+            for (idx, fac, start), mat in zip(sum_buckets_of(c6.lowered), mats):
                 wk = w.clone()
                 kernel_fn(wk, torch.as_tensor(np.ascontiguousarray(idx, np.int32), device=dev),
                           torch.as_tensor(np.ascontiguousarray(fac), device=dev).float(), start)
@@ -1691,9 +1957,12 @@ def main() -> None:
           f"phases' device time {phases_ms:.4f} ms a pass ({phases_ms / pass_q:.3f} of "
           f"the pass's busy time {pass_q:.4f} ms by queued_ms here; limit {PROFILE_COVER}), "
           f"graph {graph_ms:.4f} ms, {prof['level_kernels_in_graph']:.1f} level kernels a pass "
-          f"inside level scopes (expected {launches['fused']}), "
+          f"inside level scopes (expected {launches['fused']}), leaf kernels a pass by name "
+          f"{prof['leaf_kernels']}, "
           f"{prof['unattributed_ops']:.1f} device ops a pass without a launching call  [{smi}]",
           flush=True)
+    if not once_each(tuple(prof["leaf_kernels"][k] for k in LEAF_KERNELS)):
+        fail(f"profile_pass: leaf kernels a pass {prof['leaf_kernels']}, expected once each")
     if not phases_ms >= PROFILE_COVER * pass_q:
         fail(f"profile_pass: phases hold {phases_ms:.4f} ms of a {pass_q:.4f} ms pass: the trace "
              f"lost kernels")
@@ -1722,7 +1991,7 @@ def main() -> None:
     gv_report = {"sigma6": gv6, "profile": {
         "phases_device_ms": phases_ms, "pass_busy_ms": pass_q, "graph_ms": graph_ms,
         "phase_op_us": prof["phase_op"], "phase_host_us": prof["phase_host"],
-        "leaf_host_us": prof["leaf_host"], "wall_ms": walls}}
+        "leaf_kernels": prof["leaf_kernels"], "wall_ms": walls}}
     phase("gv")
 
     # -- 6. storage x accumulation pairs of the bucket kernel
@@ -2359,7 +2628,8 @@ def main() -> None:
         for lvl, tab in zip([lv for lv in low.levels if level_buckets(lv)], tabs):
             wk = w.clone()
             level_fn(wk, tab)
-            for _, _, start in level_buckets(lvl):
+            for sb in lvl.sum_buckets:
+                start = sb.start
                 out = torch.sparse.mm(mats[k], w)
                 d = (out - wk[start:start + out.shape[0]]).abs().max().item()
                 if not d <= 1e-4 * out.abs().max().item():
@@ -2373,8 +2643,10 @@ def main() -> None:
 
     def busy_split(label, c, para_o, w, levels_ms, busy):
         """Where the device time of a pass at BATCH goes: the leaf phase,
-        the zero-fill of w, the level launches (measured already) and the
-        plain ProdPlans and PowerPlans, each by queued_ms."""
+        the zero-fill of w, the level launches (measured already, the
+        ProdPlans and PowerPlans of arity or exponent 1..4 among them) and
+        the plain ProdPlans and PowerPlans (those above 4: none in these
+        lowerings), each by queued_ms."""
         vk = torch.randn((3, para_o.totalLoopNum, BATCH), generator=dev_gen, device=dev)
         vt = torch.rand((para_o.totalTauNum, BATCH), generator=dev_gen, device=dev) * BETA
         leaf_ms = queued_ms(lambda: c.leaf_fn(vk, vt))
@@ -2386,7 +2658,7 @@ def main() -> None:
                  "prods_ms": prod_ms}
         print(f"gamma4 busy: {label} batch {BATCH} f32, device ms by queued_ms: leaf phase "
               f"{leaf_ms:.4f}, zero-fill of w ({w.numel() * 4 / 1e9:.2f} GB) {zero_ms:.4f}, "
-              f"level launches {levels_ms:.4f}, plain ProdPlans {prod_ms:.4f}; sum "
+              f"level launches {levels_ms:.4f}, plain ProdPlans and PowerPlans {prod_ms:.4f}; sum "
               f"{sum(parts.values()):.4f} against the pass's busy {busy:.4f} (profiler)  "
               f"[{smi}]", flush=True)
         return parts
@@ -2407,6 +2679,11 @@ def main() -> None:
         n_levels, errs = check_slice(c, [(vk, vt)], f"gamma4 {label}", diagnose=g4_diagnose,
                                      misses=g4_misses)
         control = leaf_control(label, c, vk, vt)
+        if order >= 5 and mode == "fused":
+            leaf_report["checks"][f"gamma4 order {order}"] = check_leaf_kernels(
+                f"order-{order} Gamma4", c.tables, para_o.totalLoopNum, para_o.totalTauNum)
+            leaf_report["times"][f"gamma4 order {order}"] = leaf_times(
+                f"order-{order} Gamma4 fused", c, para_o.totalLoopNum, para_o.totalTauNum)
         rel = errs[batch][0]
         k = int(np.argmax(rel))
         print(f"gamma4: {label}: slots, edges, levels, buckets, ProdPlans {counts[0]}, roots and "
@@ -2623,8 +2900,9 @@ def main() -> None:
         call, the wall (events around 20 calls), the device time with the
         host out of the way (queued_ms; not where fn waits for the device)
         and the host's time a call (host_ms)."""
-        by_kernel, n_level = profile_calls(fn)
+        by_kernel, n_level, n_leaf = profile_calls(fn)
         return {"busy_ms": sum(by_kernel.values()), "level_kernels": n_level,
+                "leaf_kernels": n_leaf,
                 "wall_ms": wall_ms(fn, n=20), "queued_ms": queued_ms(fn) if queued else None,
                 "host_ms": host_ms(fn)}
 
@@ -2737,9 +3015,15 @@ def main() -> None:
                   f"{fmt_ms(e['host_ms'])} / {fmt_ms(j['host_ms'])} ms (the replay alone "
                   f"{fmt_ms(j['host_ms_replay'])}); level kernels a pass by the profiler's names "
                   f"{e['level_kernels']:.1f} / {j['level_kernels']:.1f} (levels that hold "
-                  f"buckets: {n_levels}); peak allocated {e['peak_gib']:.3f} / "
+                  f"buckets or plans: {n_levels}); leaf_prep and leaf_values kernels a pass "
+                  f"{e['leaf_kernels'][0]:.1f} and {e['leaf_kernels'][1]:.1f} / "
+                  f"{j['leaf_kernels'][0]:.1f} and {j['leaf_kernels'][1]:.1f}; peak allocated "
+                  f"{e['peak_gib']:.3f} / "
                   f"{j['peak_gib']:.3f} GiB (allocated before: {base / 2 ** 30:.3f})  [{smi}]",
                   flush=True)
+            if not (once_each(e["leaf_kernels"]) and once_each(j["leaf_kernels"])):
+                fail(f"jit {label}, batch {batch}: leaf kernels a pass eager "
+                     f"{e['leaf_kernels']}, captured {j['leaf_kernels']}: expected once each")
             if max(j["busy_ms"] / j["wall_ms"], e["busy_ms"] / e["wall_ms"]) > 1 + JIT_BUSY_SLACK:
                 fail(f"jit {label}, batch {batch}: device busy more than {JIT_BUSY_SLACK:g} above "
                      f"the wall of the same pass: a faulty clock reading")
@@ -2858,7 +3142,7 @@ def main() -> None:
         enqueues more launches than the queue holds while the device
         sleeps."""
         for tries in range(1, TRACE_TRIES + 1):
-            by_kernel, n_level = profile_calls(fn, n)
+            by_kernel, n_level, _ = profile_calls(fn, n)
             if n_level == int(n_level):
                 break
         return {"busy_ms": sum(by_kernel.values()), "level_kernels": n_level, "traces": tries,
@@ -3088,6 +3372,24 @@ def main() -> None:
             "plain_device_ms": probe_dev[name][1], "library_device_ms": probe_dev[name][2],
             "floor_device_ms": floor_dev, **extra.get(name, {})}
             for name in PROBE_LINE]}
+    # the leaf kernels, after the level kernel: the main path's launches, the
+    # worst disagreement of every check, times at order-4 Gamma4
+    g4t = leaf_report["times"]["gamma4 order 4"]
+    report["kernels"][1:1] = [{
+        "name": name, "route": "cuda", "source": "feynmandiagram_tpu_torch/csrc/leaf_eval.cu",
+        "replaces": "feynmandiagram_tpu/ops/leaf_eval.py:119",
+        "replaces_what": "the XLA loop fusion of the leaf phase's jnp chain (no Pallas kernel)",
+        "launches": leaf_main[i],
+        "max_abs_err": max(r["max_abs_err"] for r in leaf_report["checks"].values()),
+        "max_ulps": max(r["ulps"] for r in leaf_report["checks"].values()),
+        "ms": g4t["ms"][name], "plain_ms": g4t["ms"][f"{name}_plain"],
+        "bound_ms": g4t["bounds"][name]["ms"], "bound_by": g4t["bounds"][name]["by"],
+        "library_ms": None, "phase_ms": g4t["ms"]["phase"],
+        "phase_bound_ms": g4t["bounds"]["phase"]["ms"],
+        "checks": leaf_report["checks"],
+        "times": {k: {"ms": v["ms"], "bound_ms": {b: x["ms"] for b, x in v["bounds"].items()}}
+                  for k, v in leaf_report["times"].items()}}
+        for i, name in enumerate(("leaf_prep", "leaf_values"))]
     print(f"chip_smoke: the whole run took {time.perf_counter() - STARTED:.1f} s", flush=True)
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

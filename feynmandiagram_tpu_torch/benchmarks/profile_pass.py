@@ -11,9 +11,9 @@ port's hot path enters while a profiler runs (the JAX package's
 ``jax.named_scope`` names):
 
 - prng      : the sampling of varK and varT (``mc.py``)
-- loops     : LoopPool product + |q|^2 (``ops/leaf_eval.py``)
-- leaf      : the physics, one scope per (type, derivative order) group,
-              ``leafG{o}`` / ``leafV{o}``
+- loops     : the leaf phase's first kernel, ``leaf_prep`` (``ops/leaf_eval.py``:
+              LoopPool product, |q|^2, the propagators' momentum and time parts)
+- leaf      : its second, ``leaf_values``: every leaf's value
 - graph     : the levels ``gL{NN}`` (``ops/evaluator.py``); inside a level
               ``csr``, ``fb{n}`` / ``sb{n}`` (the level's one launch of the
               gather-reduce kernel over its n buckets), ``prod{a}``, ``pow{n}``
@@ -25,8 +25,8 @@ copies and fills that the phase launched, each attributed through the
 profiler's correlation id to the host call that launched it; on the CPU,
 where there is no device, it is the time of the phase's outermost ATen ops.
 *Host time* is the time the host spent inside the phase's scopes.  With
-``--levels`` both are also given by level and launch, and the leaf phase's
-host time by (type, order) group is printed in any case.
+``--levels`` both are also given by level and launch, and by leaf kernel.
+On the card the leaf phase's kernels a pass are counted by name.
 
 The last line of the output is one JSON object with the same numbers.
 
@@ -50,13 +50,14 @@ PHASES = ("prng", "loops", "leaf", "graph", "accum", "other")
 PHASE_RES = [
     ("prng", re.compile(r"/prng/")),
     ("loops", re.compile(r"/loops/")),
-    ("leaf", re.compile(r"/leaf[GV]\d+/")),
+    ("leaf", re.compile(r"/leaf/")),
     ("graph", re.compile(r"/gL\d+/")),
     ("accum", re.compile(r"/accum/")),
 ]
 LEVEL_RE = re.compile(r"/(gL\d+)/(?:([a-z]+[\dx]*)/)?")
-LEAF_RE = re.compile(r"/(leaf[GV]\d+)/")
-TOP_RE = re.compile(r"^(prng|loops|leaf[GV]\d+|gL\d+|accum)$")
+LEAF_RE = re.compile(r"/(loops|leaf)/")
+TOP_RE = re.compile(r"^(prng|loops|leaf|gL\d+|accum)$")
+LEAF_KERNELS = ("leaf_prep_kernel", "leaf_values_kernel")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -119,7 +120,7 @@ def _scope_paths(events):
 
 
 def aggregate(trace_file: str, iters: int, on_device: bool):
-    """Phase, level and leaf-group tables of one trace, per pass."""
+    """Phase and level tables of one trace, per pass."""
     with open(trace_file) as fh:
         events = json.load(fh)["traceEvents"]
     by_thread, path = _scope_paths(events)
@@ -162,7 +163,7 @@ def aggregate(trace_file: str, iters: int, on_device: bool):
             level_op[key][0] += e["dur"]
             level_op[key][1] += 1
 
-    phase_host, level_host, leaf_host = defaultdict(float), defaultdict(float), defaultdict(float)
+    phase_host, level_host = defaultdict(float), defaultdict(float)
     for spans in by_thread.values():
         stack = []   # enclosing (end, name)
         for start, end, name in spans:
@@ -171,8 +172,6 @@ def aggregate(trace_file: str, iters: int, on_device: bool):
             if not stack and TOP_RE.match(name):
                 phase = next(ph for ph, rx in PHASE_RES if rx.search(f"/{name}/"))
                 phase_host[phase] += end - start
-                if phase == "leaf":
-                    leaf_host[name] += end - start
             key = "/".join([s[1] for s in stack[-1:]] + [name])
             if LEVEL_RE.search(f"/{key}/") or LEAF_RE.search(f"/{name}/"):
                 level_host[key if stack else name] += end - start
@@ -184,7 +183,9 @@ def aggregate(trace_file: str, iters: int, on_device: bool):
 
     return {"phase_op": per_pass(phase_op), "phase_host": per_pass(phase_host),
             "level_op": per_pass(level_op), "level_host": per_pass(level_host),
-            "leaf_host": per_pass(leaf_host), "unattributed_ops": unattributed / iters,
+            "unattributed_ops": unattributed / iters,
+            "leaf_kernels": {k: sum(n for (name, _), n in kernels.items() if k in name) / iters
+                             for k in LEAF_KERNELS},
             "level_kernels_in_graph": sum(
                 n for (name, top), n in kernels.items()
                 if "gather_reduce_kernel" in name and top.startswith("gL")) / iters}
@@ -256,8 +257,9 @@ def print_tables(r: dict, show_levels: bool) -> None:
                 else host_total - sum(r["phase_host"].values()))
         print(f"{name:<8} {t:>11.1f} {100 * t / op_total if op_total else 0:>5.1f}% "
               f"{n:>9.1f} {host:>13.1f}")
-    print("\n# leaf phase, host us/pass by (type, order) group: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in sorted(r["leaf_host"].items())))
+    if r["card"]:
+        print("\n# leaf phase, kernels a pass by name: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in r["leaf_kernels"].items()))
     if show_levels:
         print("\n# per level/launch: op us/pass, ops/pass, host us/pass")
         for k in sorted(set(r["level_op"]) | set(r["level_host"])):

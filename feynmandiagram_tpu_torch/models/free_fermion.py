@@ -11,8 +11,9 @@ with tau == 0 read as tau -> 0^-.  Both branches are one form,
 Since ``softplus(beta*eps) = softplus(-beta*eps) + beta*eps``, the same G is
 ``sign * exp(-eps*tau1 - softplus(-beta*eps))`` with ``tau1 = tau`` for
 tau > 0 and ``tau + beta`` otherwise: a factor of tau alone and one of eps
-alone (``green_tau_parts``, ``green_eps_part``), which a caller evaluates
-once per tau pair and per momentum and combines per leaf.
+alone (``green_tau_parts``, ``green_eps_part``), which the leaf phase's
+kernels (``csrc/leaf_eval.cu``) evaluate once per tau pair and per momentum
+and combine per leaf; the tests hold those kernels' plain version to them.
 
 The reference differentiates with nested ``jax.grad``.  Here the derivatives
 are closed-form: ``d^n G/d eps^n = G * B_n(phi', ..., phi^(n))`` with the

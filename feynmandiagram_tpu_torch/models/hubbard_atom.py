@@ -16,9 +16,11 @@ There is no momentum here: the atom is a single site, so the BareGreenId
 momenta produced by the parquet builder are simply ignored by the leaf rules
 (hubbard.jl:42-52 does the same).
 
-The graph is lowered with ``sum_mode="bucketed"``: its sums run through the
-gather-reduce kernel, one launch per level that holds buckets, and its
-products as plain PyTorch (XLA ops in the reference).  The reference
+The graph is lowered with ``sum_mode="bucketed"``: its sums and its
+products run through the gather-reduce kernel, one launch per level that
+holds buckets or products (XLA ops in the reference).  Its leaf rules are
+this model's own (a G leaf of the constant ``eps = -mu``, a V leaf ``U``),
+in PyTorch, not ``ops.leaf_eval``'s kernels.  The reference
 jits the whole function; here ``build_sigma_evaluator(jit=True)`` replays it
 as one CUDA graph (``ops.graphs``), ``U`` a 0-dim static tensor that each
 call fills, and the default stays eager.

@@ -2,21 +2,30 @@
 
 Port of ``feynmandiagram_tpu/ops/evaluator.py`` in its flat layout: the
 weight buffer ``w`` is ``[num_slots, batch]``, slot-major, so a gather reads
-whole rows.  Levels run in order; within a level the plans run in the
-reference's order: the CSR sum, the sum buckets, the fused buckets, the
-products, the powers.
+whole rows.  Levels run in order; within a level the CSR sum, then the
+one launch of the sum buckets, the fused buckets, the products and the
+powers (the reference's order), then any plain product or power.
 
 - ``SumPlan``: gather, scale, ``index_add_`` into the level's rows
-- ``SumBucket`` / ``FusedBucket``: all of a level's buckets in one launch
-  of the gather-reduce kernel (``level_gather_reduce``)
-- ``ProdPlan`` / ``PowerPlan``: plain PyTorch (XLA ops in the reference)
+- ``SumBucket`` / ``FusedBucket``, and every ``ProdPlan`` of arity and
+  ``PowerPlan`` of exponent ``1..MAX_N_OP``: all in one launch of the
+  gather-reduce kernel a level (``level_gather_reduce``); a product of
+  arity k is the bucket of one term and ``n_op = k``, a power of n the
+  bucket of one term of its row repeated n times (``level_buckets``)
+- a ``ProdPlan`` or ``PowerPlan`` outside that range (no configuration of
+  this package has one): plain PyTorch, as XLA ops run it in the reference
+
+The kernel multiplies a term as ``(w[i0] * fac) * w[i1] * ...``; the JAX
+package computes a product ``(w[i0] * w[i1] * ...) * fac`` and a power
+``integer_pow(w[i], n) * fac``.  The two differ in rounding only: a few
+ulps of the accumulation type.
 
 Each level runs in a profiler scope ``gL{NN}``, and within it the CSR sum
-in ``csr``, the level's one bucket launch in ``fb{n}`` (``sb{n}`` when it
-holds only sum buckets; ``n`` buckets), each product in ``prod{arity}``
-and each power in ``pow{n}``: the JAX package's ``jax.named_scope`` names,
-read by ``benchmarks/profile_pass.py``.  A scope is entered only while a
-profiler runs (``utils.profiling.scope``).
+in ``csr``, the level's one launch in ``fb{n}`` (``sb{n}`` when it holds
+only sum buckets; ``n`` buckets and plans), each plain product in
+``prod{arity}`` and each plain power in ``pow{n}``: the JAX package's
+``jax.named_scope`` names, read by ``benchmarks/profile_pass.py``.  A scope
+is entered only while a profiler runs (``utils.profiling.scope``).
 
 JAX's evaluator was functional (``dynamic_update_slice`` on an immutable
 buffer); this one writes each plan's rows of ``w`` in place.  That is safe
@@ -44,26 +53,51 @@ from .lowering import LoweredGraph, lower
 from .dtypes import default_device, default_dtype
 from .graphs import Captured, require_cuda
 from ..utils.profiling import scope
-from .kernels import (LevelTables, cuda_type_codes, level_gather_reduce,
+from .kernels import (MAX_N_OP, LevelTables, cuda_type_codes, level_gather_reduce,
                       level_gather_reduce_plain, pack_level)
 
 
 @dataclass
 class _Level:
     csr: Optional[tuple]     # (start, count, src, fac, seg)
-    tables: Optional[LevelTables]   # sum buckets, then fused buckets, packed
-    prods: List[tuple]       # (start, count, idx [arity, count], factor [count], scope)
-    pows: List[tuple]        # (n, start, count, src, factor, scope)
+    tables: Optional[LevelTables]   # the level's buckets and plans, packed (level_buckets)
+    prods: List[tuple]       # plain: (start, count, idx [arity, count], factor [count], scope)
+    pows: List[tuple]        # plain: (n, start, count, src, factor, scope)
     scope: str               # the level's profiler scope, and its bucket launch's
     bucket_scope: str
 
 
+def _is_power(plan) -> bool:
+    # by its fields, so that the JAX package's plans (the tests') pass too
+    return hasattr(plan, "src")
+
+
+def in_kernel(plan) -> bool:
+    """Whether a ``ProdPlan`` or ``PowerPlan`` runs in the level launch:
+    arity, or exponent, ``1..MAX_N_OP``."""
+    return 1 <= (plan.n if _is_power(plan) else plan.arity) <= MAX_N_OP
+
+
+def plan_bucket(plan) -> tuple:
+    """A ``ProdPlan`` of arity k as the bucket ``(idx [k, 1, count], fac
+    [1, count], start)``: one term of k operands; a ``PowerPlan`` of n as
+    the bucket of one term whose operand is its row, n times."""
+    if _is_power(plan):
+        idx = np.repeat(np.asarray(plan.src)[None, None], plan.n, axis=0)
+    else:
+        idx = np.asarray(plan.idx)[:, None]
+    return idx, np.asarray(plan.factor)[None], plan.start
+
+
 def level_buckets(lvl) -> list:
     """The buckets ``(idx [n_op, arity, count], fac, start)`` of a
-    ``LevelPlan``: its sum buckets (``n_op`` 1), then its fused buckets."""
+    ``LevelPlan`` that its one launch computes: its sum buckets (``n_op``
+    1), its fused buckets, then its products and powers that ``in_kernel``
+    admits (``plan_bucket``)."""
     return ([(np.asarray(sb.idx)[None], np.asarray(sb.fac), sb.start)
              for sb in lvl.sum_buckets]
-            + [(np.asarray(fb.idx), np.asarray(fb.fac), fb.start) for fb in lvl.fused])
+            + [(np.asarray(fb.idx), np.asarray(fb.fac), fb.start) for fb in lvl.fused]
+            + [plan_bucket(p) for p in list(lvl.prods) + list(lvl.pows) if in_kernel(p)])
 
 
 def check_lowered(lowered: LoweredGraph) -> None:
@@ -155,11 +189,12 @@ def _upload(lowered: LoweredGraph, device, fac_dtype) -> List[_Level]:
         buckets = level_buckets(lvl)
         tables = pack_level(buckets, device, fac_dtype) if buckets else None
         prods = [(p.start, p.count, i64(p.idx), f(p.factor), f"prod{p.arity}")
-                 for p in lvl.prods]
+                 for p in lvl.prods if not in_kernel(p)]
         pows = [(pw.n, pw.start, pw.count, i64(pw.src), f(pw.factor), f"pow{pw.n}")
-                for pw in lvl.pows]
+                for pw in lvl.pows if not in_kernel(pw)]
+        only_sums = len(buckets) == len(lvl.sum_buckets)
         levels.append(_Level(csr, tables, prods, pows, f"gL{li:02d}",
-                             f"{'fb' if lvl.fused else 'sb'}{len(buckets)}"))
+                             f"{'sb' if only_sums else 'fb'}{len(buckets)}"))
     return levels
 
 

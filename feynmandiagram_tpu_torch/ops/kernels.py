@@ -7,7 +7,9 @@ kernel computes, in place on the weight buffer ``w``,
 
 which is the ``SumBucket`` primitive (``n_op == 1``, the function of the
 Pallas kernel ``feynmandiagram_tpu/ops/kernels.py::bucket_gather_reduce``)
-and the ``FusedBucket`` primitive of ``sum_mode='fused'`` (``n_op <= 4``).
+and the ``FusedBucket`` primitive of ``sum_mode='fused'`` (``n_op <= 4``);
+a ``ProdPlan`` or ``PowerPlan`` of up to 4 operands is a bucket of one term
+(``ops/evaluator.py::plan_bucket``).
 
 ``level_gather_reduce`` does that for all buckets of a level in one launch,
 from tables that ``pack_level`` packs once and uploads: no bucket of a level

@@ -20,9 +20,11 @@ Per topological level:
 3. each rank computes its chunk of every group reading only from the halo
    (operand indices are remapped host-side to halo positions) and writes
    the chunk at its local offset: the level's ``sum`` and ``fused`` groups
-   in one launch of the gather-reduce kernel (``level_gather_reduce`` with
-   ``src=halo``), its ``prod`` and ``pow`` groups as plain PyTorch in the
-   unsharded evaluator's arithmetic.
+   and its ``prod`` and ``pow`` groups in one launch of the gather-reduce
+   kernel (``level_gather_reduce`` with ``src=halo``), as the unsharded
+   evaluator packs them; a ``prod`` or ``pow`` of arity or exponent above
+   ``MAX_N_OP`` (no configuration of this package has one) as plain
+   PyTorch in the unsharded evaluator's arithmetic.
 
 The ranks of the graph axis that a process holds are stepped together,
 level by level: every rank's send block is gathered before any rank
@@ -56,7 +58,7 @@ import torch
 
 from ..ops.dtypes import default_dtype
 from ..ops.graphs import Captured, SeededGraph, one_shape, require_cuda
-from ..ops.kernels import LevelTables, level_gather_reduce, pack_level
+from ..ops.kernels import MAX_N_OP, LevelTables, level_gather_reduce, pack_level
 from ..ops.lowering import LoweredGraph, TILE_ROWS, _pad_to
 from .sharding import BATCH_AXIS, Mesh, _rank_columns, rank_seed
 
@@ -436,9 +438,11 @@ def _check_layout(layout: str) -> None:
 @dataclass
 class _RankLevel:
     """One level of one rank on the device: its ``sum`` and ``fused``
-    groups packed for one launch, its ``prod`` groups ``(off, chunk, idx
-    [arity, chunk], fac [chunk])`` and ``pow`` groups ``(n, off, chunk, src
-    [chunk], fac [chunk])``."""
+    groups and its ``prod`` and ``pow`` groups of arity or exponent
+    ``1..MAX_N_OP`` packed for one launch (as ``ops.evaluator.plan_bucket``
+    packs them), and the other ``prod`` groups ``(off, chunk, idx [arity,
+    chunk], fac [chunk])`` and ``pow`` groups ``(n, off, chunk, src [chunk],
+    fac [chunk])``, which run as plain PyTorch."""
     tables: Optional[LevelTables]
     prods: List[tuple]
     pows: List[tuple]
@@ -481,8 +485,15 @@ class _DeviceEval:
                         buckets.append((g.idx[:, d, :][None], g.fac[:, d, :], off))
                     elif g.kind == "fused":
                         buckets.append((g.idx[:, :, d, :], g.fac[:, d, :], off))
+                    elif g.kind == "prod" and 1 <= g.idx.shape[0] <= MAX_N_OP:
+                        # arity k: one term of k operands (ops/evaluator.py::plan_bucket)
+                        buckets.append((g.idx[:, d, :][:, None], g.fac[d][None], off))
                     elif g.kind == "prod":
                         prods.append((off, g.chunk, i64(g.idx[:, d, :]), f(g.fac[d])))
+                    elif 1 <= g.pow_n <= MAX_N_OP:
+                        # exponent n: one term of its row, n times
+                        buckets.append((np.repeat(g.idx[d][None, None], g.pow_n, axis=0),
+                                        g.fac[d][None], off))
                     else:
                         pows.append((g.pow_n, off, g.chunk, i64(g.idx[d]), f(g.fac[d])))
                 tables = pack_level(buckets, dev, dtype) if buckets else None

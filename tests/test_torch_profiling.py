@@ -9,7 +9,8 @@ package's, on the CPU.
 - ``mc.mc_run`` gives the same numbers bit for bit with a profiler running
   (its scopes entered) and without, and as the scope-free loop it replaced;
 - ``benchmarks.profile_pass`` at order 2 on the CPU: phases ``leaf`` and
-  ``graph`` among its phases, the leaf phase's host time split by group;
+  ``graph`` among its phases, the leaf phase's two kernels' scopes
+  (``loops``, ``leaf``) in its table by launch;
 - ``graft_entry``: ``entry`` builds through ``_build_compiled`` as
   ``__graft_entry__.entry`` does, the port's ``_build_compiled(2)`` equals
   the reference's on the same varK / varT in float64 (rtol 1e-12 +
@@ -65,7 +66,7 @@ def test_trace_writes_the_scopes(tmp_path):
         names = {e["name"] for e in json.load(f)["traceEvents"]
                  if e.get("cat") == "user_annotation"}
     levels = len(compiled.lowered.levels)
-    assert {"loops", "leafG0", "leafV0", "gL00", f"gL{levels - 1:02d}"} <= names
+    assert {"loops", "leaf", "gL00", f"gL{levels - 1:02d}"} <= names
     assert any(n.startswith("fb") for n in names)
 
 
@@ -98,8 +99,9 @@ def test_profile_pass_on_cpu(capsys):
     r = json.loads(out[-1])["profile_pass"]
     assert {"leaf", "graph", "loops", "prng", "accum"} <= set(r["phase_op"])
     assert r["phase_op"]["graph"][0] > 0 and r["phase_op"]["leaf"][1] > 0
-    assert set(r["leaf_host"]) == {"leafG0", "leafV0"}
-    assert sum(r["leaf_host"].values()) == pytest.approx(r["phase_host"]["leaf"])
+    assert {"loops", "leaf"} <= set(r["level_op"]) and r["phase_host"]["leaf"] > 0
+    assert r["level_host"]["leaf"] == pytest.approx(r["phase_host"]["leaf"])
+    assert r["leaf_kernels"] == {"leaf_prep_kernel": 0, "leaf_values_kernel": 0}
     assert any(k.startswith("gL00/fb") for k in r["level_op"])
     assert r["card"] is None and r["device"] == "cpu" and r["levels"] > 1
     assert any(line.startswith("graph ") for line in out)
