@@ -52,6 +52,21 @@ def leaf_graphs_of(roots: Sequence[Graph]) -> Dict[int, Graph]:
     return out
 
 
+def eager_pass(leaf_fn: Callable, graph_fn) -> Callable:
+    """``f(varK, varT) -> roots``: the two phases chained eagerly, the leaf
+    phase (``make_leaf_evaluator``'s function) writing straight into the
+    leaf rows of the graph phase's weight buffer (``graph_fn``, an eager
+    ``ops.evaluator.Evaluator``: its ``buffer``, zeroed only where a pass
+    reads before it writes), which then runs in place: no zero-fill of the
+    buffer and no copy of the leaves."""
+    def fn(varK, varT) -> torch.Tensor:
+        w = graph_fn.buffer(np.shape(varK)[-1])
+        leaf_fn(varK, varT, out=w[:graph_fn.nl_input])
+        return graph_fn.run(w)
+
+    return fn
+
+
 @dataclass
 class CompiledEvaluator:
     """The whole pipeline: (varK, varT) -> root weights [R, batch].
@@ -145,10 +160,8 @@ def compile_evaluator(roots: Sequence[Graph], *, max_loop_num: int,
                               acc_dtype=acc_dtype, compensated=compensated,
                               chunk_rows=chunk_rows)
 
-    def fn(varK, varT) -> torch.Tensor:
-        return graph_fn(leaf_fn(varK, varT))
-
-    compiled = CompiledEvaluator(lowered, tables, fn, leaf_fn, graph_fn, max_loop_num)
+    compiled = CompiledEvaluator(lowered, tables, eager_pass(leaf_fn, graph_fn), leaf_fn,
+                                 graph_fn, max_loop_num)
     return compiled.jitted() if jit else compiled
 
 

@@ -11,9 +11,9 @@ port's hot path enters while a profiler runs (the JAX package's
 ``jax.named_scope`` names):
 
 - prng      : the sampling of varK and varT (``mc.py``)
-- loops     : the leaf phase's first kernel, ``leaf_prep`` (``ops/leaf_eval.py``:
-              LoopPool product, |q|^2, the propagators' momentum and time parts)
-- leaf      : its second, ``leaf_values``: every leaf's value
+- leaf      : the leaf phase, one launch of ``leaf_eval`` (``ops/leaf_eval.py``:
+              the LoopPool product, |q|^2, the propagators' momentum and time
+              parts and every leaf's value)
 - graph     : the levels ``gL{NN}`` (``ops/evaluator.py``); inside a level
               ``csr``, ``fb{n}`` / ``sb{n}`` (the level's one launch of the
               gather-reduce kernel over its n buckets), ``prod{a}``, ``pow{n}``
@@ -25,8 +25,8 @@ copies and fills that the phase launched, each attributed through the
 profiler's correlation id to the host call that launched it; on the CPU,
 where there is no device, it is the time of the phase's outermost ATen ops.
 *Host time* is the time the host spent inside the phase's scopes.  With
-``--levels`` both are also given by level and launch, and by leaf kernel.
-On the card the leaf phase's kernels a pass are counted by name.
+``--levels`` both are also given by level and launch, and for the leaf
+phase.  On the card the leaf phase's kernels a pass are counted by name.
 
 The last line of the output is one JSON object with the same numbers.
 
@@ -46,18 +46,17 @@ import time
 from collections import defaultdict
 
 BETA, KF, LAM = 0.5, 1.919, 1.0
-PHASES = ("prng", "loops", "leaf", "graph", "accum", "other")
+PHASES = ("prng", "leaf", "graph", "accum", "other")
 PHASE_RES = [
     ("prng", re.compile(r"/prng/")),
-    ("loops", re.compile(r"/loops/")),
     ("leaf", re.compile(r"/leaf/")),
     ("graph", re.compile(r"/gL\d+/")),
     ("accum", re.compile(r"/accum/")),
 ]
 LEVEL_RE = re.compile(r"/(gL\d+)/(?:([a-z]+[\dx]*)/)?")
-LEAF_RE = re.compile(r"/(loops|leaf)/")
-TOP_RE = re.compile(r"^(prng|loops|leaf|gL\d+|accum)$")
-LEAF_KERNELS = ("leaf_prep_kernel", "leaf_values_kernel")
+LEAF_RE = re.compile(r"/(leaf)/")
+TOP_RE = re.compile(r"^(prng|leaf|gL\d+|accum)$")
+LEAF_KERNELS = ("leaf_eval_kernel",)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 

@@ -1,61 +1,87 @@
 // The leaf phase of a Monte-Carlo pass: sampled loop momenta and times ->
-// the value of every leaf of the lowered graph, in two launches.
+// the value of every leaf of the lowered graph, in one launch.
 //
 // Replaces no Pallas kernel: it replaces the loop fusion that XLA makes of
 // the jnp chain of feynmandiagram_tpu/ops/leaf_eval.py:119-155 under
 // jax.jit (the LoopPool product, |q|^2, and one physics call per
 // (leaf type, derivative order) group, scattered into the leaf buffer).
-// Run op by op in PyTorch, that chain materialised a [rows, batch]
-// temporary per op, in float64, and cost more device time than the graph
-// phase's kernel.
 //
-// 1. leaf_prep, a thread per (row, column) over n_basis + n_pairs rows,
-//    reading varK and varT in their own type (float32 or float64) and
-//    widening or rounding each element to C as it is loaded:
-//    - a basis row n: loops[d] = sum_l basis[n, l] * varK[d, l, b] (l in
-//      order), q2 = sum_d loops[d]^2 (d in order), eps = q2 - kF^2 and
-//      sp = softplus(-beta * eps), softplus(x) = max(x, 0) +
-//      log1p(exp(-|x|)) (jax.nn.softplus, not torch's thresholded one);
-//    - a pair p of times: tau = varT[out_p, b] - varT[in_p, b], cut to
-//      -TAU_CUTOFF where |tau| < TAU_CUTOFF, sign = +-1 and tau1 = tau or
-//      tau + beta (models/free_fermion.py::green_tau_parts).
-//    It writes the scratch table [3 * n_basis + 3 * n_pairs, batch]: q2,
-//    eps, sp by basis row, then sign, tau1, tau by pair.
-// 2. leaf_values, a warp per leaf row (so the branch on the row's kind and
-//    order is uniform across the warp), V columns a thread:
-//    - kind 0, a row of no group: 1;
-//    - kind 1, a bare propagator: sign * exp(-(eps * tau1 + sp));
-//    - kind 2, a G counterterm of order 1..5: (-1)^n / n! d^n G / d eps^n,
-//      the Bell recursion of models/free_fermion.py::green_derive_tower on
-//      (tau, eps), with the softplus derivatives' polynomials in s, sbar
-//      handed over by the host (`Polys`);
-//    - kind 3 / 4, an interaction counterterm of order n in the
-//      'lambda_power' / 'taylor' convention (models/yukawa.py):
-//      8 pi inv (lam inv)^n / (-1)^n 8 pi inv^(n+1), inv = 1 / (q2 + lam).
-//    Values are computed in the compute type C and rounded once to the
-//    storage type T, then stored 16 bytes a thread into row r of `out`
-//    (the leaf rows of the weight buffer) where out's base and row pitch
-//    are 16-byte aligned; else one element a thread.
+// leaf_eval_kernel walks a work list that the host builds once
+// (ops/leaf_eval.py::leaf_plan): the leaf rows grouped by basis row (a
+// segment: one basis row and its leaf rows, in leaf order; a basis row
+// with more leaves than an item holds is split, each part recomputing its
+// basis row's values), the segments packed into items of about equal leaf
+// counts, and the rows of no group in segments of their own.
 //
-// Rounding is that of the plain PyTorch version (ops/leaf_eval.py), which
-// repeats these operations in this order: every product, sum and quotient
-// is an explicit __fmul_rn / __dadd_rn / ... so that nvcc contracts none
-// into an FMA; exp and log1p are CUDA's, which PyTorch's elementwise ops
-// call too.  Narrowing rounds to nearest even as PyTorch's .to() does
-// (double -> bfloat16 through float, as c10::BFloat16 converts).
+// - A block takes a tile of kThreads columns, a thread one column (a warp's
+//   store of a leaf row is 32 adjacent elements).  It reads its column of
+//   varK [dim, n_loop, B] and varT [n_tau, B] once, in their own type
+//   (float32 or float64), widens (or rounds) each element once to the
+//   compute type C and keeps it in the block's shared memory, in slots that
+//   only this thread reads: element k at sm[k * kThreads + t], so that a
+//   warp's reads of one element are conflict-free.  (2 or 4 columns a
+//   thread, with vector stores, and 256 threads a block were slower at
+//   every shape measured: PERF.md.)
+// - The block then runs through the items blockIdx.y, blockIdx.y +
+//   gridDim.y, ...  It stages each item's records (segments, leaf records,
+//   the basis rows' nonzero entries) in shared memory, so that the walk
+//   reads broadcasts there and not dependent loads from L2.  Per segment
+//   it computes its basis row's values in registers: loops[d] = sum_l
+//   basis[n, l] * varK[d, l] over the row's nonzero entries, l in order,
+//   from 0 (an entry that is exactly 0 adds a +-0 to a sum that is
+//   squared: skipping it changes no bit of a finite sample's q2), q2 =
+//   sum_d loops[d]^2 (d in order); with a G leaf eps = q2 - kF^2; with a
+//   bare propagator sp = softplus(-beta * eps), softplus(x) = max(x, 0) +
+//   log1p(exp(-|x|)) (jax.nn.softplus).  A row of V leaves alone computes
+//   q2 only.
+// - Per leaf of the segment (the kind and order uniform over the block):
+//   tau = varT[out] - varT[in], cut to -TAU_CUTOFF where |tau| <
+//   TAU_CUTOFF, sign = +-1, tau1 = tau or tau + beta
+//   (models/free_fermion.py::green_tau_parts), and the value:
+//   - kind 0, a row of no group: 1;
+//   - kind 1, a bare propagator: sign * exp(-(eps * tau1 + sp));
+//   - kind 2, a G counterterm of order 1..5: (-1)^n / n! d^n G / d eps^n,
+//     the Bell recursion of models/free_fermion.py::green_derive_tower on
+//     (tau, eps), with the softplus derivatives' polynomials in s, sbar
+//     handed over by the host (`Polys`);
+//   - kind 3 / 4, an interaction counterterm of order n in the
+//     'lambda_power' / 'taylor' convention (models/yukawa.py):
+//     8 pi inv (lam inv)^n / (-1)^n 8 pi inv^(n+1), inv = 1 / (q2 + lam).
+//   It is computed in C, rounded once to the storage type T and stored
+//   into the leaf's row of `out` (the leaf rows of the weight buffer).
+//   Nothing else is written: no scratch table, no temporary.
 //
-// What bounds it on an H100: bytes.  A leaf element costs a handful of
-// operations (a G counterterm of order 5 about a hundred), far below the
-// ridge point; the phase must read varK and varT and write the leaf rows.
-// The scratch table (order-4 Gamma4 at batch 4096 in float64: 35 MB) lies
-// in the 50 MB L2 between the two launches, and each leaf row reads its
-// basis row and its pair from there.
+// Rounding is that of the plain PyTorch version (ops/leaf_eval.py:
+// leaf_prep_plain, then leaf_values_plain), which repeats these operations
+// in this order: every product, sum and quotient is an explicit
+// __fmul_rn / __dadd_rn / ... so that nvcc contracts none into an FMA; exp
+// and log1p are CUDA's, which PyTorch's elementwise ops call too.
+// Narrowing rounds to nearest even as PyTorch's .to() does (double ->
+// bfloat16 through float, as c10::BFloat16 converts).
+//
+// What bounds it on an H100: float64 operations, and the latency of their
+// chains.  The phase reads the samples and writes the leaves (Gamma4 order
+// 4 at batch 4096: 4.6 us of bytes), but a basis row with a propagator pays
+// an exp and a log1p, a bare propagator an exp, a G counterterm four exps,
+// a log1p and two divisions, all in float64, which the card has no
+// special-function unit for: each is tens of FP64 instructions, at 64 a
+// clock and SM.  The design keeps the samples widened once per block and a
+// basis row's values in registers, so nothing is widened or computed twice
+// for a basis row; a G counterterm still computes what its formula could
+// share (exp(u) and exp(-u) are reciprocals, and softplus has exp(-|u|)
+// already: two exps and a division fewer), as the plain version does.
+// fd_leaf_op_rate times those operations, from which chip_smoke.py takes
+// the phase's operation floor.  A thread's work is one
+// chain (a leaf after the other), and the samples' shared memory holds an
+// SM to about a thousand threads: the kernel stays short of that floor
+// (PERF.md).  The grid along the items is the launch's choice: the items
+// shared evenly over the blocks, so many a block that the waves of blocks
+// times a block's items is least.
 //
 // Built with nvcc into a shared library with a plain C interface (see
 // feynmandiagram_tpu_torch/ops/leaf_eval.py), loaded through ctypes.
 
 #include <cstdint>
-#include <cstring>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -63,12 +89,19 @@ namespace {
 
 enum TypeCode { kF32 = 0, kF64 = 1, kBF16 = 2 };
 enum Kind { kOne = 0, kG0 = 1, kGTower = 2, kVLambda = 3, kVTaylor = 4 };
+// a segment's meta word: nonzero basis entries in the low 16 bits, then
+// whether it has a basis row, needs eps (a G leaf) and sp (a bare G)
+constexpr int kNzMask = 0xffff;
+constexpr int kHasBasis = 1 << 16;
+constexpr int kNeedEps = 1 << 17;
+constexpr int kNeedSp = 1 << 18;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxOrder = 5;       // models/free_fermion.py::MAX_DERIV_ORDER
 constexpr int kMaxTerms = 4;       // terms of softplus^(k), k <= 5
-constexpr int kMaxGrid = 65535;    // blocks along y
+constexpr int kMaxGridY = 65535;
+constexpr int kMaxDevices = 64;
+constexpr int kMaxDim = 3;         // loop momenta of at most 3 components
+constexpr int kThreads = 128;      // a block's threads, one column each
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
@@ -92,73 +125,18 @@ __device__ __forceinline__ void narrow_to(__nv_bfloat16* p, double v) {
   *p = __float2bfloat16_rn(__double2float_rn(v));
 }
 
+// one sample element in the compute type: float64 -> float32 rounds to
+// nearest, as .to() does; float32 -> float64 is exact
+template <typename C> __device__ __forceinline__ C widen(const void* src, int64_t i, int input) {
+  return input == kF64 ? C(static_cast<const double*>(src)[i])
+                       : C(static_cast<const float*>(src)[i]);
+}
+
 // softplus(x) = clamp_min(x, 0) + log1p(exp(-|x|))
 template <typename C> __device__ __forceinline__ C softplus(C x) {
   const C m = x > C(0) ? x : C(0);
   return add(m, lg1p(ex(-fabs(x))));
 }
-
-// ---------------------------------------------------------------------------
-// leaf_prep
-
-struct PrepArgs {
-  const void* basis;        // [n_basis, n_loop], C
-  const void* varK;         // [dim, n_loop, batch], I
-  const void* varT;         // [n_tau, batch], I
-  const int32_t* pair_in;   // [n_pairs], 0-based rows of varT
-  const int32_t* pair_out;
-  void* scratch;            // [3 n_basis + 3 n_pairs, batch], C
-  int n_basis, n_pairs, n_loop, dim;
-  int64_t batch;
-  double kF2, beta, tau_cutoff;
-};
-
-template <typename C, typename I>
-__global__ void __launch_bounds__(kThreads) leaf_prep_kernel(PrepArgs a) {
-  const C* basis = static_cast<const C*>(a.basis);
-  const I* varK = static_cast<const I*>(a.varK);
-  const I* varT = static_cast<const I*>(a.varT);
-  C* scratch = static_cast<C*>(a.scratch);
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (col >= a.batch) return;
-  const int64_t nb = a.n_basis, B = a.batch;
-  const int64_t rows = nb + a.n_pairs;
-  for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
-    if (row < nb) {
-      const C* bn = basis + row * a.n_loop;
-      C q2 = C(0);
-      for (int d = 0; d < a.dim; ++d) {
-        const I* vk = varK + static_cast<int64_t>(d) * a.n_loop * B + col;
-        C acc = mul(bn[0], C(vk[0]));
-        for (int l = 1; l < a.n_loop; ++l) acc = add(acc, mul(bn[l], C(vk[l * B])));
-        q2 = d == 0 ? mul(acc, acc) : add(q2, mul(acc, acc));
-      }
-      scratch[row * B + col] = q2;
-      if (a.n_pairs > 0) {   // propagators present: their momentum parts
-        const C eps = sub(q2, C(a.kF2));
-        scratch[(nb + row) * B + col] = eps;
-        scratch[(2 * nb + row) * B + col] = softplus(mul(C(-a.beta), eps));
-      }
-    } else {
-      const int64_t p = row - nb;
-      C tau = sub(C(varT[a.pair_out[p] * B + col]), C(varT[a.pair_in[p] * B + col]));
-      if (fabs(tau) < C(a.tau_cutoff)) tau = C(-a.tau_cutoff);
-      const bool pos = tau > C(0);
-      const int64_t base = 3 * nb + p;
-      scratch[base * B + col] = pos ? C(1) : C(-1);
-      scratch[(base + a.n_pairs) * B + col] = pos ? tau : add(tau, C(a.beta));
-      scratch[(base + 2 * static_cast<int64_t>(a.n_pairs)) * B + col] = tau;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// leaf_values
-
-// One leaf row: its kind, derivative order, basis row and pair of times.
-struct alignas(16) LeafRow {
-  int32_t kind, order, basis, pair;
-};
 
 // softplus^(k)(u) for k = 2..kMaxOrder as sum_t coef[k][t] s^i sbar^j, the
 // terms in the host's order (models/free_fermion.py::_softplus_derivs).
@@ -166,15 +144,6 @@ struct Polys {
   int8_t n[kMaxOrder + 1];
   int8_t i[kMaxOrder + 1][kMaxTerms], j[kMaxOrder + 1][kMaxTerms];
   int16_t coef[kMaxOrder + 1][kMaxTerms];
-};
-
-struct ValuesArgs {
-  const void* scratch;
-  const LeafRow* rows;      // [n_leaves]
-  void* out;                // [n_leaves, batch], T
-  int64_t n_leaves, n_basis, n_pairs, batch;
-  double beta, lam;
-  Polys polys;
 };
 
 __constant__ const int kBinom[kMaxOrder][kMaxOrder] = {
@@ -226,136 +195,285 @@ __device__ __forceinline__ C green_tower(C tau, C eps, int n, C beta, const Poly
   return mul(mul(g, bell[n]), coef);
 }
 
+// the pair of times of a G leaf: (tau, sign, tau1) of varT[out] - varT[in]
+template <typename C> struct Times { C tau, sign, tau1; };
+
 template <typename C>
-__device__ __forceinline__ C leaf_value(const ValuesArgs& a, const C* scratch, const LeafRow& r,
-                                        int64_t col) {
-  const int64_t B = a.batch, nb = a.n_basis, np = a.n_pairs;
-  switch (r.kind) {
-    case kG0: {
-      const C eps = scratch[(nb + r.basis) * B + col];
-      const C sp = scratch[(2 * nb + r.basis) * B + col];
-      const C sign = scratch[(3 * nb + r.pair) * B + col];
-      const C tau1 = scratch[(3 * nb + np + r.pair) * B + col];
-      return mul(ex(-add(mul(eps, tau1), sp)), sign);
-    }
-    case kGTower: {
-      const C eps = scratch[(nb + r.basis) * B + col];
-      const C tau = scratch[(3 * nb + 2 * np + r.pair) * B + col];
-      return green_tower(tau, eps, r.order, C(a.beta), a.polys);
-    }
-    case kVLambda:
-    case kVTaylor: {
-      const C q2 = scratch[static_cast<int64_t>(r.basis) * B + col];
-      const C inv = quo(C(1), add(q2, C(a.lam)));
-      if (r.kind == kVLambda) {
-        const C ratio = mul(C(a.lam), inv);
-        C v = mul(C(kEightPi), inv);
-        for (int k = 0; k < r.order; ++k) v = mul(v, ratio);
-        return v;
-      }
-      C v = mul(C((r.order & 1) ? -kEightPi : kEightPi), inv);
-      for (int k = 0; k < r.order; ++k) v = mul(v, inv);
-      return v;
-    }
-    default:
-      return C(1);
-  }
+__device__ __forceinline__ Times<C> times(C t_out, C t_in, C beta, C cutoff) {
+  C tau = sub(t_out, t_in);
+  if (fabs(tau) < cutoff) tau = -cutoff;
+  const bool pos = tau > C(0);
+  return {tau, pos ? C(1) : C(-1), pos ? tau : add(tau, beta)};
 }
 
-template <typename T, int V> struct Pack { T x[V]; };
+struct Args {
+  const void* varK;          // [dim, n_loop, batch], input type
+  const void* varT;          // [n_tau, batch], input type
+  const int32_t* nz_l;       // [nnz] the basis rows' nonzero entries: loop index
+  const void* nz_coef;       // [nnz] and coefficient, C
+  const int4* segs;          // [n_seg] (nz begin, meta, leaf begin, leaf end)
+  const int4* leaves;        // [n_leaves] (out row, kind | order << 8, tau in, tau out)
+  const int4* items;         // [n_items][2] (segment begin, end, nz begin, end), (leaf begin, end, -, -)
+  void* out;                 // [rows >= max out row + 1, batch], storage type
+  int n_items, dim, n_loop, n_tau, input, storage;
+  int max_segs, max_leaves, max_nz;   // the largest item's
+  int64_t batch;
+  double kF2, beta, lam, tau_cutoff;
+  Polys polys;
+};
 
-template <typename T, typename C, int V>
-__global__ void __launch_bounds__(kThreads) leaf_values_kernel(ValuesArgs a) {
-  const C* scratch = static_cast<const C*>(a.scratch);
-  T* out = static_cast<T*>(a.out);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t col0 = (static_cast<int64_t>(blockIdx.x) * 32 + lane) * V;
-  if (col0 >= a.batch) return;   // V > 1 only where V divides the batch
-  for (int64_t row = static_cast<int64_t>(blockIdx.y) * kWarps + warp; row < a.n_leaves;
-       row += static_cast<int64_t>(gridDim.y) * kWarps) {
-    const LeafRow r = a.rows[row];
-    Pack<T, V> pk;
+// The dynamic shared memory of a block: the samples (rows x kThreads of C,
+// a thread's own slots), then one item of the work list at a time (its
+// coefficients, segments, leaf records and loop indices), which every
+// thread reads: the walk's records are broadcasts from shared memory, not
+// dependent loads from L2.
+template <typename C> __host__ __device__ inline size_t samples_bytes(int rows) {
+  return static_cast<size_t>(rows) * kThreads * sizeof(C);
+}
+
+__host__ __device__ inline size_t round16(size_t n) { return (n + 15) & ~size_t{15}; }
+
+template <typename C>
+__host__ __device__ inline size_t item_bytes(int max_segs, int max_leaves, int max_nz) {
+  return round16(static_cast<size_t>(max_nz) * sizeof(C)) +
+         static_cast<size_t>(max_segs + max_leaves) * sizeof(int4) +
+         round16(static_cast<size_t>(max_nz) * sizeof(int32_t));
+}
+
+template <typename T, typename C>
+__device__ __forceinline__ void store(void* out, int64_t off, C val) {
+  narrow_to(static_cast<T*>(out) + off, val);
+}
+
+template <typename C> __global__ void __launch_bounds__(kThreads) leaf_eval_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  C* sm = reinterpret_cast<C*>(smem_raw);
+  const int t = threadIdx.x;
+  const int64_t B = a.batch;
+  const int64_t col = static_cast<int64_t>(blockIdx.x) * kThreads + t;
+  const bool active = col < B;
+  const int nk = a.dim * a.n_loop, rows = nk + a.n_tau;
+  // the samples, widened once: element k at sm[k kThreads + t]
+  if (active) {
+#pragma unroll 8
+    for (int k = 0; k < rows; ++k) {
+      const void* src = k < nk ? a.varK : a.varT;
+      const int64_t row = (k < nk ? k : k - nk) * B + col;
+      sm[k * kThreads + t] = widen<C>(src, row, a.input);
+    }
+  }
+  // one item's records, after the samples (16-byte aligned)
+  unsigned char* item_raw = smem_raw + round16(samples_bytes<C>(rows));
+  C* s_coef = reinterpret_cast<C*>(item_raw);
+  int4* s_segs = reinterpret_cast<int4*>(item_raw + round16(a.max_nz * sizeof(C)));
+  int4* s_leaves = s_segs + a.max_segs;
+  int32_t* s_nzl = reinterpret_cast<int32_t*>(s_leaves + a.max_leaves);
+
+  const C* tk = sm + t;
+  const C* tt = sm + static_cast<int64_t>(nk) * kThreads + t;
+  const C* coef = static_cast<const C*>(a.nz_coef);
+  const C kF2 = C(a.kF2), beta = C(a.beta), nbeta = C(-a.beta), lam = C(a.lam);
+  const C cutoff = C(a.tau_cutoff);
+
+  for (int item = blockIdx.y; item < a.n_items; item += gridDim.y) {
+    const int4 it = a.items[2 * item];
+    const int leaf0 = a.items[2 * item + 1].x, n_leaves = a.items[2 * item + 1].y - leaf0;
+    __syncthreads();   // the previous item's records are read by all
+    for (int i = t; i < it.y - it.x; i += kThreads) s_segs[i] = a.segs[it.x + i];
+    for (int i = t; i < n_leaves; i += kThreads) s_leaves[i] = a.leaves[leaf0 + i];
+    for (int i = t; i < it.w - it.z; i += kThreads) {
+      s_coef[i] = coef[it.z + i];
+      s_nzl[i] = a.nz_l[it.z + i];
+    }
+    __syncthreads();
+    if (!active) continue;
+    for (int s = 0; s < it.y - it.x; ++s) {
+      const int4 sg = s_segs[s];
+      C q2, eps, sp;
+      if (sg.y & kHasBasis) {
+        // loops[d] for d < dim, the entries in order, each read once
+        C acc[kMaxDim];
 #pragma unroll
-    for (int j = 0; j < V; ++j) narrow_to(&pk.x[j], leaf_value<C>(a, scratch, r, col0 + j));
-    T* dst = out + row * a.batch + col0;
-    if constexpr (V == 1) {
-      *dst = pk.x[0];
-    } else {
-      static_assert(sizeof(T) * V == 16, "a vector store moves 16 bytes");
-      uint4 raw;
-      memcpy(&raw, &pk, 16);
-      *reinterpret_cast<uint4*>(dst) = raw;
+        for (int d = 0; d < kMaxDim; ++d) acc[d] = C(0);
+        const int e0 = sg.x - it.z, e1 = e0 + (sg.y & kNzMask);
+        for (int e = e0; e < e1; ++e) {
+          const C b = s_coef[e];
+          const C* x = tk + s_nzl[e] * kThreads;
+#pragma unroll
+          for (int d = 0; d < kMaxDim; ++d) {
+            if (d < a.dim) acc[d] = add(acc[d], mul(b, x[d * a.n_loop * kThreads]));
+          }
+        }
+        q2 = mul(acc[0], acc[0]);
+#pragma unroll
+        for (int d = 1; d < kMaxDim; ++d) {
+          if (d < a.dim) q2 = add(q2, mul(acc[d], acc[d]));
+        }
+        if (sg.y & kNeedEps) {
+          eps = sub(q2, kF2);
+          if (sg.y & kNeedSp) sp = softplus(mul(nbeta, eps));
+        }
+      }
+      for (int j = sg.z - leaf0; j < sg.w - leaf0; ++j) {
+        const int4 lf = s_leaves[j];
+        const int kind = lf.y & 0xff, order = lf.y >> 8;
+        C val;
+        switch (kind) {
+          case kG0: {
+            const Times<C> p = times(tt[lf.w * kThreads], tt[lf.z * kThreads], beta, cutoff);
+            val = mul(ex(-add(mul(eps, p.tau1), sp)), p.sign);
+            break;
+          }
+          case kGTower: {
+            const Times<C> p = times(tt[lf.w * kThreads], tt[lf.z * kThreads], beta, cutoff);
+            val = green_tower(p.tau, eps, order, beta, a.polys);
+            break;
+          }
+          case kVLambda: {
+            const C inv = quo(C(1), add(q2, lam));
+            const C ratio = mul(lam, inv);
+            val = mul(C(kEightPi), inv);
+            for (int k = 0; k < order; ++k) val = mul(val, ratio);
+            break;
+          }
+          case kVTaylor: {
+            const C inv = quo(C(1), add(q2, lam));
+            val = mul(C((order & 1) ? -kEightPi : kEightPi), inv);
+            for (int k = 0; k < order; ++k) val = mul(val, inv);
+            break;
+          }
+          default:
+            val = C(1);
+        }
+        const int64_t off = static_cast<int64_t>(lf.x) * B + col;
+        if (a.storage == kF32) {
+          store<float>(a.out, off, val);
+        } else if (a.storage == kF64) {
+          store<double>(a.out, off, val);
+        } else {
+          store<__nv_bfloat16>(a.out, off, val);
+        }
+      }
     }
   }
 }
 
-unsigned grid_y(int64_t units) {
-  return static_cast<unsigned>(units < kMaxGrid ? (units > 0 ? units : 1) : kMaxGrid);
+template <typename C> cudaError_t launch(const Args& a, cudaStream_t stream) {
+  auto* kernel = leaf_eval_kernel<C>;
+  const size_t smem = round16(samples_bytes<C>(a.dim * a.n_loop + a.n_tau)) +
+                      item_bytes<C>(a.max_segs, a.max_leaves, a.max_nz);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  // above 48 KB a block's dynamic shared memory must be allowed first: once
+  // per device and size, not on every launch
+  static int allowed[kMaxDevices] = {};
+  if (smem > 48 * 1024 && static_cast<int>(smem) > allowed[device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    allowed[device] = static_cast<int>(smem);
+  }
+  const int64_t blocks_x = (a.batch + kThreads - 1) / kThreads;
+  // the items shared evenly over the blocks along y (every block runs n or
+  // n + 1 of them), n chosen for the shortest run: the waves of blocks that
+  // the card holds at once times the items a block runs, a block's read of
+  // its samples counted as one item more
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t resident = static_cast<int64_t>(per_sm) * sms;
+  int64_t best = -1, grid_y = 1;
+  for (int64_t per = 1; per <= a.n_items; ++per) {
+    const int64_t gy = (a.n_items + per - 1) / per;
+    if (gy > kMaxGridY) continue;
+    const int64_t cost = (blocks_x * gy + resident - 1) / resident * (per + 1);
+    if (best < 0 || cost < best) {
+      best = cost;
+      grid_y = gy;
+    }
+  }
+  const dim3 grid(static_cast<unsigned>(blocks_x), static_cast<unsigned>(grid_y));
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
-template <typename T, typename C> cudaError_t launch_values(const ValuesArgs& a,
-                                                            cudaStream_t stream) {
-  constexpr int kVec = 16 / sizeof(T);
-  const bool aligned = reinterpret_cast<uintptr_t>(a.out) % 16 == 0 &&
-                       (a.batch * static_cast<int64_t>(sizeof(T))) % 16 == 0;
-  const unsigned gy = grid_y((a.n_leaves + kWarps - 1) / kWarps);
-  if (aligned) {
-    const dim3 grid(static_cast<unsigned>((a.batch + 32 * kVec - 1) / (32 * kVec)), gy);
-    leaf_values_kernel<T, C, kVec><<<grid, kThreads, 0, stream>>>(a);
-  } else {
-    const dim3 grid(static_cast<unsigned>((a.batch + 31) / 32), gy);
-    leaf_values_kernel<T, C, 1><<<grid, kThreads, 0, stream>>>(a);
+// ---------------------------------------------------------------------------
+// the issue rate of the leaf phase's float64 (and float32) operations: each
+// thread runs four independent chains of `iters` steps of one operation
+
+enum RateOp { kAdd = 0, kMul = 1, kExp = 2, kLog1p = 3, kDiv = 4, kCvt = 5 };
+
+template <typename C, int OP> __device__ __forceinline__ C rate_step(C x, float& f) {
+  if constexpr (OP == kAdd) return add(x, C(1e-7));
+  if constexpr (OP == kMul) return mul(x, C(0.9999999));
+  if constexpr (OP == kExp) return -ex(x);                 // stays in [-1, -0.37]
+  if constexpr (OP == kLog1p) return add(lg1p(x), C(0.3));  // and one add: stays near 1
+  if constexpr (OP == kDiv) return quo(C(1.5), x);        // 0.5 <-> 3
+  // a float32 -> C conversion and the add of kAdd; f steps on the float32 pipe
+  const C y = add(x, static_cast<C>(f));
+  f = __fadd_rn(f, 1e-3f);
+  return y;
+}
+
+template <typename C, int OP> __global__ void op_rate_kernel(C* out, int iters) {
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  C x0 = C(0.5) + C(threadIdx.x) * C(1e-6), x1 = add(x0, C(0.1)), x2 = add(x0, C(0.2)),
+    x3 = add(x0, C(0.3));
+  float f0 = 0.25f, f1 = 0.5f, f2 = 0.75f, f3 = 1.0f;
+  for (int i = 0; i < iters; ++i) {
+    x0 = rate_step<C, OP>(x0, f0);
+    x1 = rate_step<C, OP>(x1, f1);
+    x2 = rate_step<C, OP>(x2, f2);
+    x3 = rate_step<C, OP>(x3, f3);
+  }
+  out[tid] = add(add(x0, x1), add(x2, x3));
+}
+
+template <typename C>
+cudaError_t launch_rate(int op, C* out, int blocks, int threads, int iters, cudaStream_t s) {
+  switch (op) {
+    case kAdd: op_rate_kernel<C, kAdd><<<blocks, threads, 0, s>>>(out, iters); break;
+    case kMul: op_rate_kernel<C, kMul><<<blocks, threads, 0, s>>>(out, iters); break;
+    case kExp: op_rate_kernel<C, kExp><<<blocks, threads, 0, s>>>(out, iters); break;
+    case kLog1p: op_rate_kernel<C, kLog1p><<<blocks, threads, 0, s>>>(out, iters); break;
+    case kDiv: op_rate_kernel<C, kDiv><<<blocks, threads, 0, s>>>(out, iters); break;
+    case kCvt: op_rate_kernel<C, kCvt><<<blocks, threads, 0, s>>>(out, iters); break;
+    default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Both return the cudaError_t of the launch (0 on success).  compute,
-// input and storage are TypeCodes: compute and input (varK, varT) float32
-// or float64, storage any of the three; every pointer lies on the card
-// except `polys`.
-
-extern "C" int fd_leaf_prep(const void* basis, const void* varK, const void* varT,
-                            const void* pair_in, const void* pair_out, void* scratch,
-                            int n_basis, int n_pairs, int n_loop, int dim, long long batch,
-                            double kF2, double beta, double tau_cutoff, int compute,
-                            int input, void* stream) {
-  if (n_basis < 0 || n_pairs < 0 || n_loop < 1 || dim < 1 || batch < 1 ||
-      n_basis + n_pairs < 1) {
+// The leaf phase on the card: returns the cudaError_t of the launch (0 on
+// success).  compute, input and storage are TypeCodes: compute and input
+// (varK, varT) float32 or float64, storage any of the three; dim at most
+// kMaxDim; max_segs, max_leaves and max_nz the largest item's.  polys:
+// int32 [kMaxOrder + 1][1 + 3 kMaxTerms] on the host, per order k the
+// number of terms, then (i, j, coef) per term; every other pointer lies on
+// the card.
+extern "C" int fd_leaf_eval(const void* varK, const void* varT, const void* nz_l,
+                            const void* nz_coef, const void* segs, const void* leaves,
+                            const void* items, void* out, int n_items, int max_segs,
+                            int max_leaves, int max_nz, int dim, int n_loop, int n_tau,
+                            long long batch, double kF2, double beta, double lam,
+                            double tau_cutoff, const int* polys, int compute, int input,
+                            int storage, void* stream) {
+  if (n_items < 1 || max_segs < 1 || max_leaves < 1 || max_nz < 0 || dim < 1 ||
+      dim > kMaxDim || n_loop < 1 || n_tau < 0 || batch < 1 || polys == nullptr ||
+      (input != kF32 && input != kF64) ||
+      (storage != kF32 && storage != kF64 && storage != kBF16)) {
     return cudaErrorInvalidValue;
   }
-  const PrepArgs a{basis, varK, varT, static_cast<const int32_t*>(pair_in),
-                   static_cast<const int32_t*>(pair_out), scratch, n_basis, n_pairs, n_loop,
-                   dim, batch, kF2, beta, tau_cutoff};
-  const dim3 grid(static_cast<unsigned>((batch + kThreads - 1) / kThreads),
-                  grid_y(static_cast<int64_t>(n_basis) + n_pairs));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (compute == kF64 && input == kF64) {
-    leaf_prep_kernel<double, double><<<grid, kThreads, 0, s>>>(a);
-  } else if (compute == kF64 && input == kF32) {
-    leaf_prep_kernel<double, float><<<grid, kThreads, 0, s>>>(a);
-  } else if (compute == kF32 && input == kF32) {
-    leaf_prep_kernel<float, float><<<grid, kThreads, 0, s>>>(a);
-  } else if (compute == kF32 && input == kF64) {
-    leaf_prep_kernel<float, double><<<grid, kThreads, 0, s>>>(a);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// polys: int32 [kMaxOrder + 1][1 + 3 kMaxTerms] on the host, per order k the
-// number of terms, then (i, j, coef) per term.
-extern "C" int fd_leaf_values(const void* scratch, const void* rows, void* out,
-                              long long n_leaves, long long n_basis, long long n_pairs,
-                              long long batch, double beta, double lam, const int* polys,
-                              int storage, int compute, void* stream) {
-  if (n_leaves < 1 || n_basis < 0 || n_pairs < 0 || batch < 1 || polys == nullptr) {
-    return cudaErrorInvalidValue;
-  }
-  ValuesArgs a{scratch, static_cast<const LeafRow*>(rows), out, n_leaves, n_basis, n_pairs,
-               batch, beta, lam, Polys{}};
+  Args a{varK, varT, static_cast<const int32_t*>(nz_l), nz_coef,
+         static_cast<const int4*>(segs), static_cast<const int4*>(leaves),
+         static_cast<const int4*>(items), out, n_items, dim, n_loop, n_tau, input, storage,
+         max_segs, max_leaves, max_nz, batch, kF2, beta, lam, tau_cutoff, Polys{}};
   for (int k = 0; k <= kMaxOrder; ++k) {
     const int* row = polys + k * (1 + 3 * kMaxTerms);
     if (row[0] < 0 || row[0] > kMaxTerms) return cudaErrorInvalidValue;
@@ -368,14 +486,21 @@ extern "C" int fd_leaf_values(const void* scratch, const void* rows, void* out,
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (compute == kF64) {
-    if (storage == kF32) err = launch_values<float, double>(a, s);
-    if (storage == kF64) err = launch_values<double, double>(a, s);
-    if (storage == kBF16) err = launch_values<__nv_bfloat16, double>(a, s);
-  } else if (compute == kF32) {
-    if (storage == kF32) err = launch_values<float, float>(a, s);
-    if (storage == kF64) err = launch_values<double, float>(a, s);
-    if (storage == kBF16) err = launch_values<__nv_bfloat16, float>(a, s);
-  }
+  if (compute == kF64) err = launch<double>(a, s);
+  if (compute == kF32) err = launch<float>(a, s);
   return static_cast<int>(err);
+}
+
+// blocks x threads threads, each four chains of `iters` steps of op (RateOp)
+// in compute (TypeCode float32 or float64); out: blocks x threads elements
+// of that type on the card
+extern "C" int fd_leaf_op_rate(int op, int compute, void* out, int blocks, int threads,
+                               int iters, void* stream) {
+  if (blocks < 1 || threads < 1 || threads > 1024 || iters < 1) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (compute == kF64) return launch_rate<double>(op, static_cast<double*>(out), blocks,
+                                                  threads, iters, s);
+  if (compute == kF32) return launch_rate<float>(op, static_cast<float*>(out), blocks,
+                                                 threads, iters, s);
+  return cudaErrorInvalidValue;
 }

@@ -173,6 +173,20 @@ def unwritten_reads(lowered: LoweredGraph):
     return np.flatnonzero(unread & ~later), np.flatnonzero(later)
 
 
+def unwritten_rows(lowered: LoweredGraph) -> np.ndarray:
+    """The rows that no part of a pass writes (not a leaf or constant row,
+    nor in any plan's output rows), as int64: an eager pass that returns
+    its whole buffer zeroes them, so that it shows no stale row."""
+    written = np.zeros(lowered.num_slots, bool)
+    written[:lowered.num_leaves] = True
+    for lvl in lowered.levels:
+        plans = [lvl.sums] if lvl.sums is not None else []
+        for p in plans + list(lvl.sum_buckets) + list(lvl.fused) + list(lvl.prods) \
+                + list(lvl.pows):
+            written[p.start:p.start + p.count] = True
+    return np.flatnonzero(~written)
+
+
 def _upload(lowered: LoweredGraph, device, fac_dtype) -> List[_Level]:
     def i64(a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a, np.int64), device=device)
@@ -290,6 +304,12 @@ class Evaluator:
         zero, rezero = unwritten_reads(lowered)
         self.zero_rows = torch.as_tensor(zero, device=device)
         self.rezero_rows = torch.as_tensor(rezero, device=device) if rezero.size else None
+        # an eager pass's buffer: the rows read before written, and with
+        # return_all those never written, zeroed; all others are written
+        eager = np.concatenate([zero, rezero] + ([unwritten_rows(lowered)] if return_all
+                                                 else []))
+        self.eager_zero_rows = torch.as_tensor(np.unique(eager), device=device) \
+            if eager.size else None
         self.levels = _upload(lowered, device, acc_dtype or dtype)
 
     def leaf_input(self, leaf_values) -> torch.Tensor:
@@ -300,11 +320,29 @@ class Evaluator:
 
     def __call__(self, leaf_values) -> torch.Tensor:
         leaf_values = self.leaf_input(leaf_values)
-        batch = leaf_values.shape[1]
-        # zero-initialised: padding terms carry fac = 0, and 0 * NaN from
-        # uninitialised rows would poison their sums
-        w = torch.zeros((self.num_slots, batch), dtype=self.dtype, device=self.device)
-        w[:len(leaf_values)] = leaf_values
+        w = self.buffer(leaf_values.shape[1])
+        n = len(leaf_values)
+        w[:n] = leaf_values
+        if n < self.nl_input:
+            w[n:self.nl_input] = 0
+        return self.run(w)
+
+    def buffer(self, batch: int) -> torch.Tensor:
+        """The weight buffer ``[num_slots, batch]`` of one eager pass, from
+        ``torch.empty``: only the rows that the pass reads before it writes
+        them (none in this package's lowerings) and, with ``return_all``,
+        the rows that it never writes are zeroed.  Its first ``nl_input``
+        rows are the leaf rows, which the caller writes (the leaf phase,
+        straight into them) before ``run``."""
+        w = torch.empty((self.num_slots, batch), dtype=self.dtype, device=self.device)
+        if self.eager_zero_rows is not None:
+            w[self.eager_zero_rows] = 0
+        return w
+
+    def run(self, w: torch.Tensor) -> torch.Tensor:
+        """The eager pass on ``w`` (``buffer``, its leaf rows written): the
+        constant rows, every level in place, then the roots, or ``w`` with
+        ``return_all``."""
         if self.n_const:
             w[self.nl_input:self.nl_input + self.n_const] = self.const_values[:, None]
         _eval_levels(self.levels, w, self.acc_dtype, self.compensated, self.chunk_rows,

@@ -457,12 +457,21 @@ class _DeviceEval:
     ``[R, batch]``, which every rank holds after the last exchange."""
 
     def __init__(self, levels: List[_LevelSched], stats: ShardStats,
-                 root_send_idx: np.ndarray, root_pos: np.ndarray, mesh: Mesh,
+                 root_send_idx: np.ndarray, root_pos: np.ndarray, leaf_chunk: int, mesh: Mesh,
                  graph_axis: str, dtype: torch.dtype):
         dev = mesh.device
         self.mesh, self.graph_axis, self.dtype = mesh, graph_axis, dtype
         self.local_slots = stats.local_slots
         ranks = list(mesh.local_ranks(graph_axis))
+        # per rank held here, the rows a pass reads before it writes them
+        # (sharded_unwritten_reads): zeroed once (zero_rows) or before every
+        # pass (rezero_rows, None where there are none)
+        self.zero_rows, self.rezero_rows = [], []
+        for d in ranks:
+            zero, rezero = sharded_unwritten_reads(levels, root_send_idx, leaf_chunk,
+                                                   stats.local_slots, d)
+            self.zero_rows.append(torch.as_tensor(zero, device=dev))
+            self.rezero_rows.append(torch.as_tensor(rezero, device=dev) if rezero.size else None)
 
         def i64(a) -> torch.Tensor:
             return torch.as_tensor(np.ascontiguousarray(a, np.int64), device=dev)
@@ -501,13 +510,18 @@ class _DeviceEval:
             self.levels.append(per_rank)
 
     def init(self, leaf_blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """Each rank's buffer ``[local_slots, batch]``: zeros, its leaf block
-        in the first rows (a row read before it is written must be 0)."""
+        """Each rank's buffer ``[local_slots, batch]``: ``torch.empty``, its
+        leaf block in the first rows and the rows that a pass reads before
+        it writes them zeroed (none on this package's plans); every other
+        row is written by the pass."""
         ws = []
-        for blk in leaf_blocks:
-            w = torch.zeros((self.local_slots, blk.shape[1]), dtype=self.dtype,
+        for blk, zero, rezero in zip(leaf_blocks, self.zero_rows, self.rezero_rows):
+            w = torch.empty((self.local_slots, blk.shape[1]), dtype=self.dtype,
                             device=self.mesh.device)
             w[:blk.shape[0]] = blk
+            for rows in (zero, rezero):
+                if rows is not None and rows.numel():
+                    w[rows] = 0
             ws.append(w)
         return ws
 
@@ -565,33 +579,41 @@ class _Plan:
         n_dev = mesh.shape[graph_axis]
         levels, self.stats, root_send_idx, root_pos, self.leaf_chunk = _resolve_plan(
             lowered, n_dev, interleave, local_reuse)
-        self.device_eval = _DeviceEval(levels, self.stats, root_send_idx, root_pos, mesh,
-                                       graph_axis, self.dtype)
+        self.device_eval = _DeviceEval(levels, self.stats, root_send_idx, root_pos,
+                                       self.leaf_chunk, mesh, graph_axis, self.dtype)
         self.n_const = len(lowered.const_slots)
         self.nl_input = lowered.num_leaves - self.n_const
         self.const_values = torch.as_tensor(np.asarray(lowered.const_values),
                                             device=mesh.device).to(self.dtype)
         self.leaf_rows = self.leaf_chunk * n_dev
         self.ranks = list(mesh.local_ranks(graph_axis))
-        self.zero_rows, self.rezero_rows = [], []
-        for d in self.ranks:
-            zero, rezero = sharded_unwritten_reads(levels, root_send_idx, self.leaf_chunk,
-                                                   self.stats.local_slots, d)
-            self.zero_rows.append(torch.as_tensor(zero, device=mesh.device))
-            self.rezero_rows.append(torch.as_tensor(rezero, device=mesh.device)
-                                    if rezero.size else None)
+        self.zero_rows = self.device_eval.zero_rows
+        self.rezero_rows = self.device_eval.rezero_rows
+
+    def full(self, batch: int) -> torch.Tensor:
+        """The leaf rows of every rank ``[leaf_rows, batch]`` from
+        ``torch.empty``: the constants and the zero padding written, the
+        first ``nl_input`` rows left for the caller (the leaf phase,
+        straight into them)."""
+        full = torch.empty((self.leaf_rows, batch), dtype=self.dtype, device=self.mesh.device)
+        if self.n_const:
+            full[self.nl_input:self.nl_input + self.n_const] = self.const_values[:, None]
+        full[self.nl_input + self.n_const:] = 0
+        return full
+
+    def split(self, full: torch.Tensor) -> List[torch.Tensor]:
+        """The leaf blocks of the ranks held here: each rank's contiguous
+        rows of ``full``."""
+        c = self.leaf_chunk
+        return [full[d * c:(d + 1) * c] for d in self.ranks]
 
     def blocks(self, leaf_values: torch.Tensor) -> List[torch.Tensor]:
         """The leaf blocks of the ranks held here, for ``leaf_values``
         ``[nl_input, batch]``: the leaf rows with the constants and zero
         padding after them, each rank's a contiguous block."""
-        full = torch.zeros((self.leaf_rows, leaf_values.shape[1]), dtype=self.dtype,
-                           device=self.mesh.device)
+        full = self.full(leaf_values.shape[1])
         full[:self.nl_input] = leaf_values
-        if self.n_const:
-            full[self.nl_input:self.nl_input + self.n_const] = self.const_values[:, None]
-        c = self.leaf_chunk
-        return [full[d * c:(d + 1) * c] for d in self.mesh.local_ranks(self.graph_axis)]
+        return self.split(full)
 
     def eval(self, leaf_values: torch.Tensor) -> torch.Tensor:
         return self.device_eval(self.blocks(leaf_values))
@@ -820,7 +842,9 @@ def make_graph_sharded_mc_step(lowered: LoweredGraph, tables, mesh: Mesh, *,
                                  dtype=plan.dtype, device=mesh.device)
                 vt = torch.rand((num_tau, batch_per_device), generator=gen,
                                 dtype=plan.dtype, device=mesh.device) * beta
-                acc = acc + plan.eval(leaf_fn(vk, vt)).sum(dim=1)
+                full = plan.full(batch_per_device)
+                leaf_fn(vk, vt, out=full[:plan.nl_input])
+                acc = acc + plan.device_eval(plan.split(full)).sum(dim=1)
             means.append(acc / (iters * batch_per_device))
         return mesh.mean(batch_axis, means)
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..backends.compile import eager_pass
 from ..ops.dtypes import default_device, default_dtype
 from ..ops.graphs import Captured, SeededGraph, one_shape, require_cuda
 
@@ -164,8 +165,8 @@ def shard_compiled(compiled, mesh: Mesh, *, axis_name: str = BATCH_AXIS,
     def fn(varK, varT) -> torch.Tensor:
         varK = torch.as_tensor(varK, device=mesh.device)
         varT = torch.as_tensor(varT, device=mesh.device)
-        parts = [compiled.graph_fn(compiled.leaf_fn(varK[..., cols].contiguous(),
-                                                    varT[:, cols].contiguous()))
+        run = eager_pass(compiled.leaf_fn, compiled.graph_fn)
+        parts = [run(varK[..., cols].contiguous(), varT[:, cols].contiguous())
                  for cols in _rank_columns(varT.shape[-1], mesh, axis_name)]
         return mesh.all_gather(axis_name, parts, dim=1)
 
@@ -226,6 +227,8 @@ def make_mc_step(compiled, mesh: Mesh, *, beta: float, axis_name: str = BATCH_AX
     dtype = default_dtype(mesh.device)
     ranks = list(mesh.local_ranks(axis_name))
 
+    run = eager_pass(compiled.leaf_fn, compiled.graph_fn)
+
     def step(seed: int, batch_per_device: int) -> torch.Tensor:
         means = []
         for r in ranks:
@@ -235,7 +238,7 @@ def make_mc_step(compiled, mesh: Mesh, *, beta: float, axis_name: str = BATCH_AX
                              device=mesh.device)
             vt = torch.rand((num_tau, batch_per_device), generator=gen, dtype=dtype,
                             device=mesh.device) * beta
-            roots = compiled.graph_fn(compiled.leaf_fn(vk, vt))
+            roots = run(vk, vt)
             means.append(roots.sum(dim=1) / batch_per_device)
         return mesh.mean(axis_name, means)
 

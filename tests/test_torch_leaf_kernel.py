@@ -17,7 +17,8 @@ both compute in float32, in different orders, so a propagator's exponent
 ``-eps*tau`` differs by ~``|eps*tau|`` float32 ulps between them; held at
 rtol 1e-5 plus 1e-5 * max|ref| per group (SLICE_TOL).  The kernel's own
 checks (bit for bit with this plain path on the card) are in
-``chip_smoke.py``.
+``chip_smoke.py``; its work list is held on the CPU by
+``tests/test_torch_leaf_worklist.py``.
 """
 import math
 
@@ -159,7 +160,7 @@ def test_plain_path_equals_the_model_functions(case):
         vk = torch.as_tensor(varK)
         vt = torch.as_tensor(varT)
         scratch = torch.empty((plan.scratch_rows(), 24), dtype=torch.float64)
-        leaf_eval.leaf_prep(plan, vk, vt, scratch)
+        leaf_eval.leaf_prep_plain(plan, vk, vt, scratch)
         got = f(varK, varT)
         nb, npair = plan.n_basis, plan.n_pairs
         for kind, order, rows, brow, pair in plan.groups:
@@ -183,7 +184,7 @@ def test_scratch_table_against_its_definition(case):
     varK, varT = _samples(pt, n_tau, 16, 14)
     plan = make_leaf_evaluator(pt, beta=BETA, kF=KF, lam=LAM, device="cpu").plan
     scratch = torch.empty((plan.scratch_rows(), 16), dtype=torch.float64)
-    leaf_eval.leaf_prep(plan, torch.as_tensor(varK), torch.as_tensor(varT), scratch)
+    leaf_eval.leaf_prep_plain(plan, torch.as_tensor(varK), torch.as_tensor(varT), scratch)
     nb, npair = plan.n_basis, plan.n_pairs
     q2 = (np.einsum("nl,dlb->dnb", pt.loop_basis, varK) ** 2).sum(axis=0)
     np.testing.assert_allclose(scratch[:nb].numpy(), q2, rtol=1e-13, atol=1e-13 * q2.max())
@@ -239,13 +240,13 @@ def test_wrappers_run_plain_on_the_cpu_and_count_no_launch():
     jt, n_tau = _no_group()
     pt = LeafTables.from_arrays(**{n: getattr(jt, n) for n in FIELDS})
     varK, varT = _samples(pt, n_tau, 8, 17)
-    before = (leaf_eval.leaf_prep.launches, leaf_eval.leaf_values.launches)
+    before = leaf_eval.leaf_eval.launches
     make_leaf_evaluator(pt, beta=BETA, kF=KF, lam=LAM, device="cpu")(varK, varT)
-    assert (leaf_eval.leaf_prep.launches, leaf_eval.leaf_values.launches) == before
+    assert leaf_eval.leaf_eval.launches == before
     plan = make_leaf_evaluator(pt, beta=BETA, kF=KF, lam=LAM, device="cpu").plan
     meta = torch.empty((plan.num_leaves, 8), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
-        leaf_eval.leaf_values(plan, torch.empty((plan.scratch_rows(), 8)), meta)
+        leaf_eval.leaf_eval(plan, torch.as_tensor(varK), torch.as_tensor(varT), meta)
 
 
 def test_tables_and_options_are_checked():

@@ -9,8 +9,10 @@ package's, on the CPU.
 - ``mc.mc_run`` gives the same numbers bit for bit with a profiler running
   (its scopes entered) and without, and as the scope-free loop it replaced;
 - ``benchmarks.profile_pass`` at order 2 on the CPU: phases ``leaf`` and
-  ``graph`` among its phases, the leaf phase's two kernels' scopes
-  (``loops``, ``leaf``) in its table by launch;
+  ``graph`` among its phases, the leaf phase's scope (``leaf``, its one
+  kernel) in its table by launch;
+- ``chip_smoke.union_length``, the device's busy time from a trace's
+  kernel intervals: overlapping intervals count once;
 - ``graft_entry``: ``entry`` builds through ``_build_compiled`` as
   ``__graft_entry__.entry`` does, the port's ``_build_compiled(2)`` equals
   the reference's on the same varK / varT in float64 (rtol 1e-12 +
@@ -66,7 +68,7 @@ def test_trace_writes_the_scopes(tmp_path):
         names = {e["name"] for e in json.load(f)["traceEvents"]
                  if e.get("cat") == "user_annotation"}
     levels = len(compiled.lowered.levels)
-    assert {"loops", "leaf", "gL00", f"gL{levels - 1:02d}"} <= names
+    assert {"leaf", "gL00", f"gL{levels - 1:02d}"} <= names and "loops" not in names
     assert any(n.startswith("fb") for n in names)
 
 
@@ -92,16 +94,25 @@ def test_mc_run_unchanged_by_scopes():
     assert torch.equal(plain, traced) and torch.equal(plain, acc)
 
 
+@pytest.mark.parametrize("intervals, length", [
+    ([], 0.0), ([(0.0, 1.0)], 1.0), ([(2.0, 3.0), (0.0, 1.0)], 2.0),
+    ([(0.0, 2.0), (1.0, 3.0)], 3.0), ([(0.0, 4.0), (1.0, 2.0)], 4.0),
+    ([(2.0, 3.0), (0.0, 1.0), (0.5, 2.5)], 3.0), ([(1.0, 2.0), (2.0, 3.0)], 2.0)])
+def test_busy_time_counts_overlapping_kernels_once(intervals, length):
+    import chip_smoke
+    assert chip_smoke.union_length(intervals) == length
+    assert chip_smoke.union_length(reversed(intervals)) == length
+
 def test_profile_pass_on_cpu(capsys):
     from feynmandiagram_tpu_torch.benchmarks import profile_pass
     profile_pass.main(["2", "32", "2", "--levels", "--device", "cpu"])
     out = capsys.readouterr().out.strip().splitlines()
     r = json.loads(out[-1])["profile_pass"]
-    assert {"leaf", "graph", "loops", "prng", "accum"} <= set(r["phase_op"])
+    assert {"leaf", "graph", "prng", "accum"} <= set(r["phase_op"])
     assert r["phase_op"]["graph"][0] > 0 and r["phase_op"]["leaf"][1] > 0
-    assert {"loops", "leaf"} <= set(r["level_op"]) and r["phase_host"]["leaf"] > 0
+    assert "leaf" in r["level_op"] and r["phase_host"]["leaf"] > 0
     assert r["level_host"]["leaf"] == pytest.approx(r["phase_host"]["leaf"])
-    assert r["leaf_kernels"] == {"leaf_prep_kernel": 0, "leaf_values_kernel": 0}
+    assert r["leaf_kernels"] == {"leaf_eval_kernel": 0}
     assert any(k.startswith("gL00/fb") for k in r["level_op"])
     assert r["card"] is None and r["device"] == "cpu" and r["levels"] > 1
     assert any(line.startswith("graph ") for line in out)
