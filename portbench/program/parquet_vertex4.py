@@ -1,0 +1,18 @@
+"""The four-point vertex Gamma4 by the port's Parquet front end:
+``vertex4`` at the configuration's ``innerLoopNum``, its filters and
+interactions, then ``optimize_inplace`` at its level."""
+from __future__ import annotations
+
+
+def roots(cfg: dict):
+    from feynmandiagram_tpu_torch import frontends
+    from feynmandiagram_tpu_torch.computational_graph import optimize_inplace
+    from feynmandiagram_tpu_torch.frontends.parquet import DiagPara, Interaction, Ver4Diag, vertex4
+
+    para = DiagPara(type=Ver4Diag, innerLoopNum=cfg["innerLoopNum"], hasTau=True,
+                    filter=tuple(getattr(frontends, f) for f in cfg["filter"]),
+                    interaction=tuple(Interaction(getattr(frontends, r), getattr(frontends, t))
+                                      for r, t in cfg["interaction"]))
+    out = [row["diagram"] for row in vertex4(para)]
+    optimize_inplace(out, level=cfg["optimize_level"])
+    return out, para.totalLoopNum, para.totalTauNum
