@@ -181,8 +181,9 @@ output line or more each:
    eager pass beside the captured one, samples/s in turns, wall, profiler
    busy time, idle share, device time with the host out of the way, the
    host's time a pass and a replay, the level kernels a pass counted by the
-   profiler's kernel names (``level_gather_reduce.launches`` counts a
-   capture, never a replay) and the peak of allocated memory, at batches
+   profiler's kernel names and by the launch counters (a replay counts its
+   graph's launch manifest: the eager pass's launches, a pass) and the peak
+   of allocated memory, at batches
    4096, 8192 and 16384 (order 6 at 4096 and 8192: 16384 passes 2^31
    elements of w; bucketed at 4096); the Hubbard atom at orders 1-5 and
    65,536 through ``build_sigma_evaluator(jit=True)``, two U through one
@@ -3050,9 +3051,16 @@ def main() -> None:
             mem_e = torch.cuda.max_memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             loop = CapturedLoop(c, **kw)
+            level_fn.launches = kernel_fn.launches = 0
+            leaf_eval.leaf_eval.launches = 0
             got = loop.run(SEED, 3)
             torch.cuda.synchronize()
             mem_j = torch.cuda.max_memory_allocated()
+            counted = (level_fn.launches, kernel_fn.launches, leaf_launches())
+            if counted != (3 * n_levels, 0, 3):
+                fail(f"jit {label} mc, batch {batch}: 3 replays counted {counted} level, "
+                     f"bucket and leaf launches, expected {(3 * n_levels, 0, 3)}: a replay "
+                     f"counts its graph's launch manifest, the eager pass's launches")
             draws = "the eager draws"
             if not torch.equal(got, want):
                 # the captured Philox stream may differ from the eager one:
@@ -3124,9 +3132,9 @@ def main() -> None:
         return make_evaluator(c.lowered, device=dev, dtype=torch.float64, kernel=False)(
             leaf(vk, vt)).sum(dim=1)[None]
 
-    print("jit: level_gather_reduce.launches counts a capture's launches, never a replay's "
-          "(a replay runs no Python): the jit lines count level kernels by the profiler's "
-          "kernel names", flush=True)
+    print("jit: a replay counts its graph's launch manifest in the launch counters, the "
+          "eager pass's launches a pass (jit mc checks it); the jit time lines count level "
+          "kernels by the profiler's kernel names", flush=True)
     jit_report = {}
     for mode in ("fused", "bucketed"):
         label = f"order-4 Gamma4 {mode}"

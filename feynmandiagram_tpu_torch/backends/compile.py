@@ -29,6 +29,7 @@ from ..ops.dtypes import default_device, default_dtype
 from ..ops.evaluator import make_evaluator
 from ..ops.graphs import Captured, require_cuda
 from ..ops.leaf_eval import LeafTables, leaf_tables_from_lowered, make_leaf_evaluator
+from ..utils.profiling import phase, scope
 
 
 def leafmap_of(roots: Sequence[Graph]) -> Dict[int, int]:
@@ -58,9 +59,11 @@ def eager_pass(leaf_fn: Callable, graph_fn) -> Callable:
     leaf rows of the graph phase's weight buffer (``graph_fn``, an eager
     ``ops.evaluator.Evaluator``: its ``buffer``, zeroed only where a pass
     reads before it writes), which then runs in place: no zero-fill of the
-    buffer and no copy of the leaves."""
+    buffer and no copy of the leaves.  The buffer is made in the profiler
+    scope ``buffer``."""
     def fn(varK, varT) -> torch.Tensor:
-        w = graph_fn.buffer(np.shape(varK)[-1])
+        with scope("buffer"):
+            w = graph_fn.buffer(np.shape(varK)[-1])
         leaf_fn(varK, varT, out=w[:graph_fn.nl_input])
         return graph_fn.run(w)
 
@@ -73,7 +76,10 @@ class CompiledEvaluator:
 
     ``leaf_fn`` and ``graph_fn`` are the two phases, run eagerly (scripts
     time them apart); ``fn`` is the chain, captured where it was compiled
-    with ``jit=True``."""
+    with ``jit=True``.  A call runs in the profiler scope ``call``: eagerly,
+    its children are ``inputs`` (the samples to the device), ``buffer``,
+    ``leaf``, the levels ``gL{NN}`` and ``roots``; captured, the replay's
+    ``replay:<name>``."""
     lowered: LoweredGraph
     tables: LeafTables
     fn: Callable
@@ -82,7 +88,8 @@ class CompiledEvaluator:
     max_loop_num: int
 
     def __call__(self, varK, varT) -> torch.Tensor:
-        return self.fn(varK, varT)
+        with scope("call"):
+            return self.fn(varK, varT)
 
     def static_pass(self, batch: int) -> Callable:
         """The whole pass on buffers of one batch size allocated here, for a
@@ -142,27 +149,35 @@ def compile_evaluator(roots: Sequence[Graph], *, max_loop_num: int,
       replays the leaf and graph phases as one CUDA graph, captured at the
       first call of each input shape (one at a time), and returns a fresh
       tensor of the roots.  It needs a CUDA ``device`` (``ValueError``
-      otherwise).  The default stays eager: on the CPU there is no graph,
-      and the launch counters and the profiler's scopes read eager passes.
+      otherwise).  The default stays eager: on the CPU there is no graph.
+      A replay counts its launches as an eager pass does (the graph's
+      launch manifest) and runs in the scope ``replay:<name>``.
+
+    Set-up phases (``utils.profiling.phases``): ``compile_evaluator``, and
+    inside it ``lower`` (the lowering), ``leaf_tables`` (the leaf tables
+    and the leaf phase's plan, uploaded) and ``upload`` (the levels' checks
+    and tables, uploaded).
     """
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)
     if jit:
         require_cuda(device, "compile_evaluator")
-    leafmap = leafmap_of(roots)
-    lowered = lower(roots, leafmap, sum_mode=sum_mode,
-                    merge_threshold=merge_threshold, cse=cse)
-    tables = leaf_tables_from_lowered(lowered, leaf_graphs_of(roots), max_loop_num)
-    leaf_fn = make_leaf_evaluator(tables, beta=beta, kF=kF, lam=lam, device=device,
-                                  dtype=dtype,
-                                  interaction_convention=interaction_convention)
-    graph_fn = make_evaluator(lowered, device=device, dtype=dtype,
-                              acc_dtype=acc_dtype, compensated=compensated,
-                              chunk_rows=chunk_rows)
-
-    compiled = CompiledEvaluator(lowered, tables, eager_pass(leaf_fn, graph_fn), leaf_fn,
-                                 graph_fn, max_loop_num)
-    return compiled.jitted() if jit else compiled
+    with phase("compile_evaluator"):
+        with phase("lower"):
+            lowered = lower(roots, leafmap_of(roots), sum_mode=sum_mode,
+                            merge_threshold=merge_threshold, cse=cse)
+        with phase("leaf_tables"):
+            tables = leaf_tables_from_lowered(lowered, leaf_graphs_of(roots), max_loop_num)
+            leaf_fn = make_leaf_evaluator(tables, beta=beta, kF=kF, lam=lam, device=device,
+                                          dtype=dtype,
+                                          interaction_convention=interaction_convention)
+        with phase("upload"):
+            graph_fn = make_evaluator(lowered, device=device, dtype=dtype,
+                                      acc_dtype=acc_dtype, compensated=compensated,
+                                      chunk_rows=chunk_rows)
+        compiled = CompiledEvaluator(lowered, tables, eager_pass(leaf_fn, graph_fn), leaf_fn,
+                                     graph_fn, max_loop_num)
+        return compiled.jitted() if jit else compiled
 
 
 # ---------------------------------------------------------------------------

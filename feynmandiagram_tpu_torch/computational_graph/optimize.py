@@ -12,11 +12,13 @@ from __future__ import annotations
 import copy
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..utils.profiling import phased
 from .graph import Graph
 from .transform import (flatten_chains_inplace, merge_linear_combination_inplace,
                         merge_multi_product_inplace, remove_zero_valued_subgraphs_inplace)
 
 
+@phased("optimize_inplace")
 def optimize_inplace(graphs: Sequence[Graph], *, level: int = 0, verbose: int = 0,
                      normalize=None) -> Optional[Sequence[Graph]]:
     """In-place optimization pipeline (optimize.jl:16-36).

@@ -17,6 +17,7 @@ import tempfile
 from typing import List, Optional
 
 from ..common import Alli, Filter, NoHartree, PHEr, PHr, PPr
+from ...utils.profiling import phased
 from .readfile import read_diagrams, read_diagrams_feynman, read_vertex4_diagrams
 
 _BUNDLED = os.path.join(os.path.dirname(__file__), "tables")
@@ -81,6 +82,7 @@ def _table_file(diag_type: str, order: int, v_order: int, g_order: int,
         "python -m feynmandiagram_tpu_torch.frontends.gv.generator")
 
 
+@phased("diagsGV")
 def diagsGV(diag_type: str, order: int, g_order: Optional[int] = None,
             v_order: Optional[int] = None, *, label_prod=None,
             spin_polar_para: float = 0.0, tau_labels=None,
@@ -104,6 +106,7 @@ def diagsGV(diag_type: str, order: int, g_order: Optional[int] = None,
                                  tau_labels=tau_labels, diag_type=diag_type)
 
 
+@phased("diagsGV_ver4")
 def diagsGV_ver4(order: int, *, spin_polar_para: float = 0.0,
                  channels=(PHr, PHEr, PPr, Alli), filter=(NoHartree,)):
     """Load 4-point vertex diagrams of a given order (GV.jl:106-114)."""

@@ -21,7 +21,9 @@ from .operation import mergeby
 
 
 from . import _memo
+from ...utils.profiling import phased
 
+@phased("sigma")
 @_memo.scoped
 def sigma(para: DiagPara, extK=None, subdiagram: bool = False, *,
           name: str = "Σ", blocks: ParquetBlocks = ParquetBlocks()) -> List[dict]:

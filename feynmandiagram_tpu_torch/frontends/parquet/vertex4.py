@@ -65,7 +65,9 @@ def max_ver4_loop_idx(para: DiagPara) -> int:
 
 
 from . import _memo
+from ...utils.profiling import phased
 
+@phased("vertex4")
 @_memo.scoped
 def vertex4(para: DiagPara, extK=None, subdiagram: bool = False, *,
             channels: Sequence[TwoBodyChannel] = (PHr, PHEr, PPr, Alli),

@@ -13,7 +13,9 @@ loop: one iteration (the draws into static ``varK`` / ``varT`` from the
 run's generator, registered with the graph; the ``CompiledEvaluator``'s
 static pass; the sum into a static accumulator) is captured as one CUDA
 graph and replayed ``iters`` times.  A replay draws from the generator's
-state at replay time, as an eager iteration does.
+state at replay time, as an eager iteration does.  ``CapturedLoop.run``
+runs in the scope ``mc.chunk``, each replay in its graph's
+(``ops.graphs.replay``).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from typing import Callable
 
 import torch
 
-from .ops.graphs import capture, require_cuda
+from .ops.graphs import capture, replay, require_cuda
 from .utils.profiling import scope
 
 
@@ -63,11 +65,11 @@ class CapturedLoop:
     def run(self, seed: int, iters: int) -> torch.Tensor:
         """``iters`` replays from the generator seeded with ``seed``; a
         fresh tensor of the roots' sums [R]."""
-        self.gen.manual_seed(seed)
-        self.acc.zero_()
-        for _ in range(iters):
-            self.graph.replay()
-        return self.acc.clone()
+        with scope("mc.chunk"):
+            self.gen.manual_seed(seed)
+            self.acc.zero_()
+            replay(self.graph, iters)
+            return self.acc.clone()
 
 
 def mc_run(eval_fn: Callable, *, n_loop: int, num_tau: int, batch: int,

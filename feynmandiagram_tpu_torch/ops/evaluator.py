@@ -25,7 +25,9 @@ in ``csr``, the level's one launch in ``fb{n}`` (``sb{n}`` when it holds
 only sum buckets; ``n`` buckets and plans), each plain product in
 ``prod{arity}`` and each plain power in ``pow{n}``: the JAX package's
 ``jax.named_scope`` names, read by ``benchmarks/profile_pass.py``.  A scope
-is entered only while a profiler runs (``utils.profiling.scope``).
+is entered only while a profiler runs or a capture is open
+(``utils.profiling.scope``); in a capture the scopes name the launches of
+the graph's manifest (``gL05/fb8``).
 
 JAX's evaluator was functional (``dynamic_update_slice`` on an immutable
 buffer); this one writes each plan's rows of ``w`` in place.  That is safe
@@ -341,16 +343,17 @@ class Evaluator:
 
     def run(self, w: torch.Tensor) -> torch.Tensor:
         """The eager pass on ``w`` (``buffer``, its leaf rows written): the
-        constant rows, every level in place, then the roots, or ``w`` with
-        ``return_all``."""
+        constant rows, every level in place, then the roots (profiler scope
+        ``roots``), or ``w`` with ``return_all``."""
         if self.n_const:
             w[self.nl_input:self.nl_input + self.n_const] = self.const_values[:, None]
         _eval_levels(self.levels, w, self.acc_dtype, self.compensated, self.chunk_rows,
                      self.kernel)
         if self.return_all:
             return w
-        out = w[self.root_slots]
-        return out.to(self.acc_dtype) if self.acc_dtype is not None else out
+        with scope("roots"):
+            out = w[self.root_slots]
+            return out.to(self.acc_dtype) if self.acc_dtype is not None else out
 
     def static_pass(self, batch: int) -> StaticPass:
         """A new ``StaticPass`` of this evaluator at ``batch``."""
@@ -380,8 +383,9 @@ def make_evaluator(lowered: LoweredGraph, *, device=None, dtype=None,
     roots.  It holds one batch size at a time: a new one frees the old
     graph and buffers.  It needs a CUDA ``device`` (``ValueError``
     otherwise) and runs no ``return_all``.  The default stays eager: on the
-    CPU there is no graph, and the launch counters and the profiler's
-    scopes read eager passes.
+    CPU there is no graph.  The launch counters count a replay's launches
+    as an eager pass's, from the graph's launch manifest, and its replay
+    runs in the scope ``replay:<name>`` (``ops.graphs.replay``).
     """
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)

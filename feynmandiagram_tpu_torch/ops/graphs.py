@@ -4,20 +4,30 @@ The JAX package compiles a whole pass into one device program
 (``jax.jit``).  On CUDA the counterpart is a ``torch.cuda.CUDAGraph``
 captured from a body that allocates nothing outside the graph's memory pool
 and never waits for the host: the static passes of ``ops.evaluator`` and
-``backends.compile``.  A replay runs no Python, so the kernels' launch
-counters (``level_gather_reduce.launches``) and the profiler's scopes see
-the capture only, never a replay.
+``backends.compile``.
 
 ``capture`` warms a body up and captures it; ``Captured`` replays one at
 the shapes of its last call and re-captures when they change;
 ``SeededGraph`` replays a body that draws from generators, each seeded
 before the replay; ``one_shape`` holds one such graph at a time.
+
+A replay runs no Python, so ``capture`` keeps the graph's launch manifest
+(``utils.profiling.capturing``: each kernel launch of the body, with its
+symbol and the path of the scopes it ran in) as ``graph.manifest``, and
+every replay goes through ``replay``: it runs in the scope
+``replay:<name>`` and adds the manifest's launches to the kernels' launch
+counters (``level_gather_reduce.launches``), which so count the device's
+launches, eager or replayed.  The scopes inside the body name the
+manifest's launches; a trace of a replay holds its kernels' records, and
+the manifest tells which launch each one is.
 """
 from __future__ import annotations
 
 from typing import Callable, List, Sequence, Tuple
 
 import torch
+
+from ..utils import profiling
 
 
 def require_cuda(device: torch.device, what: str) -> None:
@@ -39,7 +49,9 @@ def capture(body: Callable[[], torch.Tensor],
     The first run builds what is built at first use (the kernels' library,
     cuBLAS's workspace, lazily loaded modules), which capture forbids.
     ``generators`` are registered with the graph, so that each replay draws
-    from each one's state at replay time and moves it on."""
+    from each one's state at replay time and moves it on.  The first run
+    counts its launches; the captured one runs nothing on the device and
+    counts none: each replay (``replay``) counts the graph's manifest."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -48,13 +60,27 @@ def capture(body: Callable[[], torch.Tensor],
     graph = torch.cuda.CUDAGraph()
     for gen in generators:
         graph.register_generator_state(gen)
-    with torch.cuda.graph(graph):
-        out = body()
+    with profiling.capturing() as manifest:
+        with torch.cuda.graph(graph):
+            out = body()
+    graph.manifest = manifest
     # a replay writes into the buffers that body's closure holds (a static
     # w, the draws), which live outside the graph's pool: they must live
     # as long as the graph, or the allocator hands their memory to others
     graph.body = body
     return graph, out
+
+
+def replay(graph, iters: int = 1) -> None:
+    """``iters`` replays of ``graph``, each in the scope ``replay:<name>``;
+    the kernels' launch counters then grow by ``iters`` times its manifest
+    (a graph that kept none, such as a stand-in's, counts nothing)."""
+    manifest = getattr(graph, "manifest", None)
+    span = manifest.span if manifest is not None else "replay"
+    for _ in range(iters):
+        with profiling.scope(span):
+            graph.replay()
+    profiling.replayed(manifest, iters)
 
 
 def _load(static: torch.Tensor, value) -> None:
@@ -95,7 +121,7 @@ class Captured:
         static, graph, out = self._state
         for s, x in zip(static, inputs):
             _load(s, x)
-        graph.replay()
+        replay(graph)
         return out.clone()
 
 
@@ -130,5 +156,5 @@ class SeededGraph:
     def replay(self, seeds: Sequence[int]) -> torch.Tensor:
         for gen, seed in zip(self.generators, seeds, strict=True):
             gen.manual_seed(seed)
-        self.graph.replay()
+        replay(self.graph)
         return self.out

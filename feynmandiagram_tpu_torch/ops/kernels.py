@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from . import build
+from ..utils.profiling import launched
 
 MAX_N_OP = 4
 STORAGE_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
@@ -187,7 +188,8 @@ def bucket_gather_reduce(w: torch.Tensor, idx: torch.Tensor, fac: torch.Tensor,
     ``TARGET_BLOCKS`` blocks, and ``L2_GROUP_BYTES``) changes the order of the
     work and not the result.  A CPU
     ``w`` runs ``bucket_gather_reduce_plain``.  Any other device raises.
-    ``bucket_gather_reduce.launches`` counts kernel launches.
+    ``bucket_gather_reduce.launches`` counts kernel launches, replays of a
+    captured one included (``utils.profiling.launched``).
     """
     if w.device.type == "cpu":
         bucket_gather_reduce_plain(w, idx, fac, start, compensated=compensated,
@@ -209,10 +211,11 @@ def bucket_gather_reduce(w: torch.Tensor, idx: torch.Tensor, fac: torch.Tensor,
             _group_cols(w, (n_op * arity + 1) * count, geometry), stream)
     if err != 0:
         raise RuntimeError(f"bucket_gather_reduce launch failed: cudaError {err}")
-    bucket_gather_reduce.launches += 1
+    launched(bucket_gather_reduce)
 
 
 bucket_gather_reduce.launches = 0
+bucket_gather_reduce.symbol = "gather_reduce_kernel"
 
 
 def _items_across(w: torch.Tensor) -> int:
@@ -413,7 +416,8 @@ def level_gather_reduce(w: torch.Tensor, tables: LevelTables, *, compensated: bo
     that no bucket reads a destination row of the level
     (``check_lowered``).  A CPU ``w`` runs ``level_gather_reduce_plain``.
     Any other device raises.  ``level_gather_reduce.launches`` counts kernel
-    launches."""
+    launches, replays of a captured one included (``utils.profiling.launched``);
+    ``level_gather_reduce.symbol`` is the kernel's name."""
     if w.device.type == "cpu":
         level_gather_reduce_plain(w, tables, compensated=compensated, acc_dtype=acc_dtype,
                                   chunk_rows=chunk_rows, src=src)
@@ -437,7 +441,8 @@ def level_gather_reduce(w: torch.Tensor, tables: LevelTables, *, compensated: bo
             int(compensated), _group_cols(w, tables.rows_touched, geometry), stream)
     if err != 0:
         raise RuntimeError(f"level_gather_reduce launch failed: cudaError {err}")
-    level_gather_reduce.launches += 1
+    launched(level_gather_reduce)
 
 
 level_gather_reduce.launches = 0
+level_gather_reduce.symbol = "gather_reduce_kernel"

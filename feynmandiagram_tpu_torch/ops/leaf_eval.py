@@ -35,7 +35,8 @@ off by 2.4e-6 at the 99th percentile and 2.7e-5 at worst (on an H100),
 enough to put a root past 1e-5 of the float64 pass, scale-relative.
 
 On a CUDA tensor ``leaf_eval`` launches the kernel (built at first use by
-``ops/build.py``) and counts the launch in ``leaf_eval.launches``; on a CPU
+``ops/build.py``) and counts the launch in ``leaf_eval.launches`` (a
+captured one at each replay, ``utils.profiling.launched``); on a CPU
 tensor it runs the plain version.  Nothing falls back: a failed build or
 launch raises.  The tables are built and uploaded to the device once, by
 ``make_leaf_evaluator``.
@@ -55,7 +56,7 @@ from ..frontends import BareGreenId, BareInteractionId
 from ..models.free_fermion import MAX_DERIV_ORDER, TAU_CUTOFF, _softplus_derivs
 from ..models.yukawa import EIGHT_PI
 from .dtypes import default_device, default_dtype
-from ..utils.profiling import scope
+from ..utils.profiling import launched, scope
 
 
 @dataclass
@@ -595,10 +596,11 @@ def leaf_eval(plan: LeafPlan, varK: torch.Tensor, varT: torch.Tensor,
             _TYPE_CODE[out.dtype], stream)
     if err != 0:
         raise RuntimeError(f"leaf_eval launch failed: cudaError {err}")
-    leaf_eval.launches += 1
+    launched(leaf_eval)
 
 
 leaf_eval.launches = 0
+leaf_eval.symbol = "leaf_eval_kernel"
 
 # the operations whose issue rate op_rate times (csrc/leaf_eval.cu RateOp)
 RATE_OPS = ("add", "mul", "exp", "log1p", "div", "cvt")
@@ -642,7 +644,8 @@ def make_leaf_evaluator(tables: LeafTables, *, beta: float, kF: float, lam: floa
     rounded once to ``dtype``; ``compute_dtype=dtype`` computes in the
     storage type, as the JAX package does.  A call is one ``leaf_eval``
     (profiler scope ``leaf``): on CUDA one launch of its kernel, on the CPU
-    its plain version.  ``f.plan`` is the ``LeafPlan``.
+    its plain version; the samples go to the device in the scope
+    ``inputs``.  ``f.plan`` is the ``LeafPlan``.
     """
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)
@@ -656,8 +659,9 @@ def make_leaf_evaluator(tables: LeafTables, *, beta: float, kF: float, lam: floa
         return (x if x.dtype in COMPUTE_DTYPES else x.to(compute_dtype)).contiguous()
 
     def evaluate(varK, varT, out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        varK = inputs(varK)
-        varT = inputs(varT).to(varK.dtype)
+        with scope("inputs"):
+            varK = inputs(varK)
+            varT = inputs(varT).to(varK.dtype)
         batch = varK.shape[-1]
         if out is None:
             out = torch.empty((tables.num_leaves, batch), dtype=dtype, device=device)

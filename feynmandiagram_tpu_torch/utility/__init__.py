@@ -14,6 +14,7 @@ import string
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..computational_graph import Graph, SUM
+from ..utils.profiling import phased
 from ..computational_graph.graph import linear_combination, multi_product
 from ..taylor import (TaylorSeries, get_numvars, get_orders, set_variables,
                       taylor_factorial)
@@ -142,6 +143,7 @@ def _variable_names(n: int) -> str:
     return " ".join(names)
 
 
+@phased("taylorAD")
 def taylorAD(graphs: Sequence[Graph], deriv_orders: Sequence[int],
              leaf_dep_funcs: Sequence[Callable], *,
              dict_graphs: Optional[Dict[Tuple[int, ...], List[Graph]]] = None

@@ -28,6 +28,7 @@ from feynmandiagram_tpu_torch.models import hubbard_atom  # noqa: E402
 from feynmandiagram_tpu_torch.ops import graphs  # noqa: E402
 from feynmandiagram_tpu_torch.ops.evaluator import (make_evaluator,  # noqa: E402
                                                      unwritten_reads)
+from feynmandiagram_tpu_torch.utils import profiling  # noqa: E402
 
 from test_torch_host import PORT, REF, generate, generate_taylor, to_port  # noqa: E402
 
@@ -181,23 +182,33 @@ def test_hubbard_static_pass_equals_eager_for_two_U(order):
 class _StandIn:
     """``graphs.capture`` on the CPU: no graph; the body runs once at
     capture and at each replay, and a replay writes into the tensor that
-    the capture returned, as a graph's replay does."""
+    the capture returned, as a graph's replay does.  As ``capture`` does,
+    the capture keeps the body's launch manifest (``utils.profiling.capturing``)
+    as ``graph.manifest``; a replay's own run of the body counts no launch,
+    as a graph's replay runs no Python (``ops.graphs.replay`` counts it from
+    the manifest)."""
 
     def __init__(self):
         self.captures = 0
+        self.manifests = []
 
     def __call__(self, body, generators=()):
         self.captures += 1
-        out = body()
+        with profiling.capturing() as manifest:
+            out = body()
 
         class Graph:
             @staticmethod
             def replay():
-                new = body()
+                with profiling.capturing():
+                    new = body()
                 if new is not out:
                     out.copy_(new)
 
-        return Graph(), out
+        graph = Graph()
+        graph.manifest = manifest
+        self.manifests.append(manifest)
+        return graph, out
 
 
 @pytest.fixture

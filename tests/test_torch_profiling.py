@@ -8,6 +8,7 @@ package's, on the CPU.
   ``utils.profiling.scope`` enters no span without a profiler;
 - ``mc.mc_run`` gives the same numbers bit for bit with a profiler running
   (its scopes entered) and without, and as the scope-free loop it replaced;
+  so do ``compile_evaluator``'s build (its phases) and call (its spans);
 - ``benchmarks.profile_pass`` at order 2 on the CPU: phases ``leaf`` and
   ``graph`` among its phases, the leaf phase's scope (``leaf``, its one
   kernel) in its table by launch;
@@ -19,6 +20,7 @@ package's, on the CPU.
   1e-12·max|ref|, the G towers differ in the last digits), and
   ``dryrun_multichip`` passes on a local CPU mesh.
 """
+import dataclasses
 import glob
 import importlib.util
 import json
@@ -74,15 +76,30 @@ def test_trace_writes_the_scopes(tmp_path):
 
 def test_mc_run_unchanged_by_scopes():
     """mc_run with a profiler running and without, and the loop without
-    scopes that it replaced, bit for bit."""
+    scopes that it replaced, bit for bit; so are compile_evaluator's
+    lowering, leaf tables and calls, built and called with a profiler
+    running (its phases and the entry's spans entered) and without."""
     from feynmandiagram_tpu_torch.mc import mc_run
     from feynmandiagram_tpu_torch.utils import trace
+    log_dir = os.path.join(os.environ.get("TMPDIR", "/tmp"), "fdtpu_test_trace")
     compiled, para = _order2()
+    with trace(log_dir):
+        compiled_traced, _ = _order2()
+    assert compiled_traced.lowered.num_slots == compiled.lowered.num_slots
+    for f in dataclasses.fields(compiled.tables):
+        assert np.array_equal(getattr(compiled_traced.tables, f.name),
+                              getattr(compiled.tables, f.name))
+    rng = np.random.default_rng(4)
+    varK, varT = rng.standard_normal((3, para.totalLoopNum, 16)), rng.random((5, 16)) * 0.5
+    want = compiled(varK, varT)
+    with trace(log_dir):
+        called = compiled(varK, varT)
+    assert torch.equal(compiled_traced(varK, varT), want) and torch.equal(called, want)
     n_roots = len(compiled.lowered.root_slots)
     kw = dict(n_loop=para.totalLoopNum, num_tau=para.totalTauNum, batch=32, n_roots=n_roots,
               device="cpu", dtype=torch.float64, iters=3, beta=0.5, seed=5)
     plain = mc_run(compiled.fn, **kw)
-    with trace(os.path.join(os.environ.get("TMPDIR", "/tmp"), "fdtpu_test_trace")):
+    with trace(log_dir):
         traced = mc_run(compiled.fn, **kw)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(5)
