@@ -169,6 +169,14 @@ output line or more each:
    SLICE_TOL prints ``MISS:`` with its error under Kahan sums, float64
    accumulation and a float64 graph phase, and fails the run at the
    phase's end, after a JSON line of the misses;
+10a. the eager pass from its launch plans (``launch plan:`` and ``launch
+   plan time:`` lines, ``launch_plan_checks``): order-4 Gamma4 fused at
+   4096 and config 4 fused at 8192, the graph phase from the plan (each run
+   of levels one ``levels_gather_reduce``) bit for bit against the
+   level-by-level path in float32, float32/float64 and compensated, 13 / 37
+   level launches a pass, all of them from the run launcher, one plan
+   built; the eager call against the call before the plans bit for bit,
+   and both calls' dispatch, call and host-only clocks in turns;
 11. the whole pass captured as CUDA graphs, the counterpart of the JAX
    package's ``jit`` (``jit:``, ``jit mc:`` and ``jit time:`` lines):
    order-4 Gamma4 fused and bucketed through ``compile_evaluator(jit=True)``
@@ -347,6 +355,14 @@ PROBE_LINE = {"dma8": 39, "dmagrp": 61, "vmemrow": 82, "vmem8": 100, "acc": 122,
               "onehot": 143, "dynwrite": 162, "dmadyn_dst": 185, "take": 205}
 
 
+# the launch plan's phase: its cases' batches, the eager calls a side a turn
+# of its dispatch timing (a pool of PLAN_POOL host batches, as the benchmark's
+# call cell), and the host-only clock's calls and repeats
+PLAN_BATCHES = {"order-4 Gamma4 fused": 4096, "config 4 fused": 8192}
+PLAN_CALLS, PLAN_POOL = 200, 16
+PLAN_HOST_CALLS, PLAN_HOST_REPS = 20, 5
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     print(f"chip_smoke: the run failed after {time.perf_counter() - STARTED:.1f} s",
@@ -395,6 +411,180 @@ def probe_library_calls(w, rows):
             "dynwrite": lambda: F.pad(blk[0:1], (0, 0, j8, 7 - j8)),
             "dmadyn_dst": dyn_dst,
             "take": lambda: torch.index_select(blk, 0, take_rows)}
+
+
+def launch_plan_checks(dev, smi: str, cases) -> dict:
+    """``launch plan:`` lines.  For each case ``(label, compiled, n_loop,
+    n_tau)`` at its batch of PLAN_BATCHES: the graph phase from the launch
+    plan (each run of levels one ``levels_gather_reduce``) against the
+    level-by-level path (``Evaluator.steps`` None: a checked
+    ``level_gather_reduce`` a level) bit for bit, in float32, float32 with
+    float64 accumulation and float32 compensated, three passes each, with
+    the level launches, the run launcher's calls and share of them, and the
+    plans built (one); the whole eager call through the plan against the
+    call before it (the leaf phase through the checked ``leaf_eval``, the
+    levels one by one) bit for bit; then both calls' clocks in turns: the
+    host's dispatch (samples handed over to the entry's return) and the
+    call (roots read back into the caller's host array) over PLAN_CALLS
+    calls a turn on PLAN_POOL host batches, and the host's time alone (calls
+    queued behind a sleep kernel, samples on the card) of the call, its
+    leaf phase and its graph phase."""
+    import numpy as np
+    import torch
+    from feynmandiagram_tpu_torch.backends.compile import CompiledEvaluator, eager_pass
+    from feynmandiagram_tpu_torch.ops import evaluator as evaluator_mod
+    from feynmandiagram_tpu_torch.ops import kernels, leaf_eval
+    from feynmandiagram_tpu_torch.ops.evaluator import level_buckets, make_evaluator
+    from feynmandiagram_tpu_torch.utils.profiling import scope
+
+    level_fn, run_fn = kernels.level_gather_reduce, kernels.levels_gather_reduce
+    rng = np.random.default_rng(SEED)
+
+    def host_ms(fn):
+        """The host's ms a call of fn, PLAN_HOST_CALLS calls queued behind a
+        sleep kernel, the median of PLAN_HOST_REPS; None where the device
+        woke before the host was done."""
+        fn()
+        out = []
+        for _ in range(PLAN_HOST_REPS):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(JIT_SLEEP_CYCLES)
+            slept = torch.cuda.Event()
+            slept.record()
+            t0 = time.perf_counter()
+            for _ in range(PLAN_HOST_CALLS):
+                fn()
+            out.append((time.perf_counter() - t0) / PLAN_HOST_CALLS * 1e3)
+            if slept.query():
+                out[-1] = math.nan
+        torch.cuda.synchronize()
+        med = float(np.median(out))
+        return None if math.isnan(med) else med
+
+    def per_level(lowered):
+        g = make_evaluator(lowered, device=dev, dtype=torch.float32)
+        g.steps = None
+        return g
+
+    report = {}
+    for label, c, n_loop, n_tau in cases:
+        batch = PLAN_BATCHES[label]
+        n_levels = sum(1 for lvl in c.lowered.levels if level_buckets(lvl))
+        pool = [(torch.from_numpy(rng.standard_normal((3, n_loop, batch), dtype=np.float32)),
+                 torch.from_numpy(rng.random((n_tau, batch), dtype=np.float32)
+                                  * np.float32(BETA))) for _ in range(PLAN_POOL)]
+        vk, vt = (x.to(dev) for x in pool[0])
+        leaves = c.leaf_fn(vk, vt)
+        rep = {"batch": batch, "levels": n_levels, "checks": {}}
+        for name, acc, comp in (("float32", None, False), ("float32/float64", torch.float64,
+                                                           False),
+                                ("float32 compensated", None, True)):
+            planned = make_evaluator(c.lowered, device=dev, dtype=torch.float32, acc_dtype=acc,
+                                     compensated=comp)
+            stepwise = make_evaluator(c.lowered, device=dev, dtype=torch.float32, acc_dtype=acc,
+                                      compensated=comp)
+            stepwise.steps = None
+            runs = sum(1 for step in planned.steps if isinstance(step, list))
+            built = evaluator_mod.launch_plan.built
+            level_fn.launches = run_fn.launches = run_fn.calls = 0
+            got = [planned(leaves) for _ in range(3)]
+            counted = (level_fn.launches, run_fn.launches, run_fn.calls,
+                       evaluator_mod.launch_plan.built - built)
+            level_fn.launches = 0
+            want = stepwise(leaves)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, want) for g in got)
+            share = counted[1] / max(counted[0], 1)
+            print(f"launch plan: {label}, batch {batch} {name}: 3 passes from the launch plan "
+                  f"against the level-by-level path bit for bit {same}; {counted[0]} level "
+                  f"launches ({n_levels} a pass expected), {counted[1]} of them from "
+                  f"{counted[2]} run launcher calls ({runs} run(s) a pass; share "
+                  f"{100 * share:.1f}%), {counted[3]} plan(s) built; the level-by-level pass "
+                  f"{level_fn.launches} launches", flush=True)
+            if not same or not torch.isfinite(want).all():
+                fail(f"launch plan {label} {name}: the pass from the plan left the "
+                     f"level-by-level one")
+            if counted != (3 * n_levels, 3 * n_levels, 3 * runs, 1) \
+                    or level_fn.launches != n_levels:
+                fail(f"launch plan {label} {name}: counted {counted} (level launches, of the "
+                     f"run launcher, its calls, plans built), expected "
+                     f"{(3 * n_levels, 3 * n_levels, 3 * runs, 1)}")
+            rep["checks"][name] = {"bit_for_bit": same, "launches": counted[0],
+                                   "launcher_share": share, "runs": runs,
+                                   "plans_built": counted[3]}
+            del planned, stepwise, got, want
+        plan = c.leaf_fn.plan
+
+        def leaf_before(varK, varT, out):
+            """The leaf phase as a call ran it before the plan: every check
+            of ``leaf_eval`` at each call."""
+            with scope("inputs"):
+                varK = torch.as_tensor(varK, device=dev).contiguous()
+                varT = torch.as_tensor(varT, device=dev).contiguous().to(varK.dtype)
+            with scope("leaf"):
+                leaf_eval.leaf_eval(plan, varK, varT, out)
+            return out
+
+        g_before = per_level(c.lowered)
+        before = CompiledEvaluator(c.lowered, c.tables, eager_pass(leaf_before, g_before),
+                                   leaf_before, g_before, c.max_loop_num)
+        same = torch.equal(c(*pool[1]), before(*pool[1]))
+        print(f"launch plan: {label}, batch {batch} f32, the eager call (host samples) through "
+              f"the plans against the call before them: bit for bit {same}", flush=True)
+        if not same:
+            fail(f"launch plan {label}: the eager call left the call before the plan")
+        kept = [c(*p).cpu() for p in pool]
+        clocks = {"before": {"dispatch": [], "call": []}, "plan": {"dispatch": [], "call": []}}
+        for mode in ("before", "plan", "plan", "before"):
+            fn = c if mode == "plan" else before
+            for i in range(PLAN_CALLS):
+                j = i % PLAN_POOL
+                a = time.perf_counter()
+                roots = fn(*pool[j])
+                b = time.perf_counter()
+                kept[j].copy_(roots)
+                e = time.perf_counter()
+                clocks[mode]["dispatch"].append(1e3 * (b - a))
+                clocks[mode]["call"].append(1e3 * (e - a))
+        w_plan, w_before = c.graph_fn.buffer(batch), g_before.buffer(batch)
+        w_plan[:c.graph_fn.nl_input] = leaves
+        w_before[:g_before.nl_input] = leaves
+        out = torch.empty_like(leaves)
+        host = {"plan": {"call": host_ms(lambda: c(vk, vt)),
+                         "leaf": host_ms(lambda: c.leaf_fn(vk, vt, out=out)),
+                         "graph": host_ms(lambda: c.graph_fn.run(w_plan))},
+                "before": {"call": host_ms(lambda: before(vk, vt)),
+                           "leaf": host_ms(lambda: leaf_before(vk, vt, out)),
+                           "graph": host_ms(lambda: g_before.run(w_before))}}
+        stats = {mode: {k: {"median": float(np.median(v)),
+                            "p95": float(np.percentile(v, 95))} for k, v in m.items()}
+                 for mode, m in clocks.items()}
+        saved = (host["before"]["graph"] - host["plan"]["graph"]) / n_levels \
+            if host["before"]["graph"] is not None and host["plan"]["graph"] is not None \
+            else None
+
+        def ms(x):
+            return "n/a" if x is None else f"{x:.4f}"
+
+        print(f"launch plan time: {label}, batch {batch} f32, before / plan, {2 * PLAN_CALLS} "
+              f"eager calls a side in turns on {PLAN_POOL} host batches: dispatch median "
+              f"{stats['before']['dispatch']['median']:.4f} / "
+              f"{stats['plan']['dispatch']['median']:.4f} ms, call median "
+              f"{stats['before']['call']['median']:.4f} / {stats['plan']['call']['median']:.4f} "
+              f"ms, call p95 {stats['before']['call']['p95']:.4f} / "
+              f"{stats['plan']['call']['p95']:.4f} ms; the host alone (samples on the card, "
+              f"queued behind a sleep): call {ms(host['before']['call'])} / "
+              f"{ms(host['plan']['call'])} ms, leaf phase {ms(host['before']['leaf'])} / "
+              f"{ms(host['plan']['leaf'])} ms, graph phase {ms(host['before']['graph'])} / "
+              f"{ms(host['plan']['graph'])} ms ({n_levels} levels: "
+              f"{ms(None if saved is None else 1e3 * saved)} us saved a level)  [{smi}]",
+              flush=True)
+        rep.update({"call_bit_for_bit": same, "clocks": stats, "host_ms": host,
+                    "saved_us_per_level": None if saved is None else 1e3 * saved})
+        report[label] = rep
+        del before, g_before, kept, pool, leaves, w_plan, w_before, out
+        torch.cuda.empty_cache()
+    return report
 
 
 def main() -> None:
@@ -2957,6 +3147,14 @@ def main() -> None:
                          f"{m['max_rel_err']:.3e}" for m in g4_misses))
 
 
+    # -- 10a. the eager pass from its launch plans
+    fused4, para4_ = jit_keep["config 4 fused"]
+    plan_report = launch_plan_checks(dev, smi, (
+        ("order-4 Gamma4 fused", compiled["fused"], para.totalLoopNum, para.totalTauNum),
+        ("config 4 fused", fused4, para4_.totalLoopNum, para4_.totalTauNum)))
+    del fused4, para4_
+    phase("launch plan")
+
     # -- 11. the whole pass captured as CUDA graphs: jit=True
     def host_ms(fn, n=JIT_HOST_CALLS):
         """The host's time per call of fn, n calls enqueued behind a sleep
@@ -3460,7 +3658,8 @@ def main() -> None:
         "gamma4": {str(order): rep for order, rep in g4_report.items()},
         "gamma4_past_2_31": g4_big,
         "jit": {"paths_captured": sorted(jit_report), "cases": jit_report},
-        "jit_sharded": jit_shard_report, "probe_bucket_fusion": fusion["rows"]}] + [{
+        "jit_sharded": jit_shard_report, "probe_bucket_fusion": fusion["rows"],
+        "launch_plan": plan_report}] + [{
             "name": f"probe_{name}", "route": "cuda",
             "source": "feynmandiagram_tpu_torch/csrc/row_probes.cu",
             "replaces": f"benchmarks/probe_mosaic_caps.py:{PROBE_LINE[name]}",

@@ -16,7 +16,10 @@ port's hot path enters while a profiler runs (the JAX package's
               parts and every leaf's value)
 - graph     : the levels ``gL{NN}`` (``ops/evaluator.py``); inside a level
               ``csr``, ``fb{n}`` / ``sb{n}`` (the level's one launch of the
-              gather-reduce kernel over its n buckets), ``prod{a}``, ``pow{n}``
+              gather-reduce kernel over its n buckets), ``prod{a}``, ``pow{n}``;
+              on the card a run of levels launched from one C call, in the
+              scope ``levels``, whose launches are given back to their
+              levels in launch order (the evaluator's runs name them)
 - accum     : the sum of the roots over the batch
 - other     : what ran outside every scope
 
@@ -50,12 +53,13 @@ PHASES = ("prng", "leaf", "graph", "accum", "other")
 PHASE_RES = [
     ("prng", re.compile(r"/prng/")),
     ("leaf", re.compile(r"/leaf/")),
-    ("graph", re.compile(r"/gL\d+/")),
+    ("graph", re.compile(r"/(?:gL\d+|levels)/")),
     ("accum", re.compile(r"/accum/")),
 ]
 LEVEL_RE = re.compile(r"/(gL\d+)/(?:([a-z]+[\dx]*)/)?")
 LEAF_RE = re.compile(r"/(leaf)/")
-TOP_RE = re.compile(r"^(prng|leaf|gL\d+|accum)$")
+TOP_RE = re.compile(r"^(prng|leaf|gL\d+|levels|accum)$")
+RUN_SCOPE = "levels"
 LEAF_KERNELS = ("leaf_eval_kernel",)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -109,27 +113,50 @@ def _scope_paths(events):
         spans.sort()
         starts[key] = [s[0] for s in spans]
 
-    def path(thread, ts):
+    def enclosing(thread, ts):
         spans = by_thread.get(thread, ())
         hi = bisect.bisect_right(starts.get(thread, ()), ts)
-        names = [name for start, end, name in spans[:hi] if ts <= end]
+        return [span for span in spans[:hi] if ts <= span[1]]
+
+    def path(thread, ts):
+        names = [name for _, _, name in enclosing(thread, ts)]
         return "/" + "/".join(names) + "/" if names else "/"
 
-    return by_thread, path
+    return by_thread, path, enclosing
 
 
-def aggregate(trace_file: str, iters: int, on_device: bool):
-    """Phase and level tables of one trace, per pass."""
+def _run_labels(launches, enclosing, runs):
+    """Correlation id -> level path (``gL05/fb8``) of each kernel launch
+    made inside a ``levels`` scope: the scopes in time order are the pass's
+    runs in turn, and a run's launches its levels in order."""
+    groups = defaultdict(list)
+    for corr, (thread, ts, name) in launches.items():
+        spans = enclosing(thread, ts)
+        if "LaunchKernel" in name and spans and spans[-1][2] == RUN_SCOPE:
+            groups[thread, spans[-1][0]].append((ts, corr))
+    labels = {}
+    for k, key in enumerate(sorted(groups, key=lambda key: key[1])):
+        for (_, corr), label in zip(sorted(groups[key]), runs[k % len(runs)]):
+            labels[corr] = label
+    return labels
+
+
+def aggregate(trace_file: str, iters: int, on_device: bool, runs=()):
+    """Phase and level tables of one trace, per pass.  ``runs``: the level
+    paths of each run of a pass that the card launches from one C call, in
+    pass order."""
     with open(trace_file) as fh:
         events = json.load(fh)["traceEvents"]
-    by_thread, path = _scope_paths(events)
-    launches = {}
+    by_thread, path, enclosing = _scope_paths(events)
+    launches, labels = {}, {}
     if on_device:
         for e in events:
             if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver"):
                 corr = e.get("args", {}).get("correlation")
-                if corr is not None:
-                    launches[corr] = ((e["pid"], e["tid"]), e["ts"])
+                if corr is not None and corr not in launches:
+                    launches[corr] = ((e["pid"], e["tid"]), e["ts"], e.get("name", ""))
+        if runs:
+            labels = _run_labels(launches, enclosing, runs)
         ops = [e for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
     else:
         # the outermost ATen ops of each host thread
@@ -146,10 +173,13 @@ def aggregate(trace_file: str, iters: int, on_device: bool):
     unattributed, kernels = 0, defaultdict(int)
     for e in ops:
         if on_device:
-            src = launches.get(e.get("args", {}).get("correlation"))
+            corr = e.get("args", {}).get("correlation")
+            src = launches.get(corr)
             if src is None:
                 unattributed += 1
-            p = path(*src) if src else "/"
+            p = path(*src[:2]) if src else "/"
+            if corr in labels:
+                p = p[:-len(RUN_SCOPE) - 1] + labels[corr] + "/"
             kernels[e["name"], p.split("/")[1] if p != "/" else ""] += 1
         else:
             p = path((e["pid"], e["tid"]), e["ts"])
@@ -172,7 +202,8 @@ def aggregate(trace_file: str, iters: int, on_device: bool):
                 phase = next(ph for ph, rx in PHASE_RES if rx.search(f"/{name}/"))
                 phase_host[phase] += end - start
             key = "/".join([s[1] for s in stack[-1:]] + [name])
-            if LEVEL_RE.search(f"/{key}/") or LEAF_RE.search(f"/{name}/"):
+            if LEVEL_RE.search(f"/{key}/") or LEAF_RE.search(f"/{name}/") \
+                    or name == RUN_SCOPE:
                 level_host[key if stack else name] += end - start
             stack.append((end, name))
 
@@ -222,7 +253,9 @@ def profile(order: int = 4, batch: int = 4096, iters: int = 20, device=None,
         sync()
         traced = time.perf_counter() - t0
     trace_file = sorted(glob.glob(os.path.join(log_dir, "trace_*.json")))[-1]
-    out = aggregate(trace_file, iters, device.type == "cuda")
+    runs = [tuple(f"{lvl.scope}/{lvl.bucket_scope}" for lvl in step)
+            for step in compiled.graph_fn.steps or () if isinstance(step, list)]
+    out = aggregate(trace_file, iters, device.type == "cuda", runs)
     low = compiled.lowered
     card = None
     if device.type == "cuda":

@@ -383,6 +383,30 @@ extern "C" int fd_level_gather_reduce(void* w, const void* src, const void* idx_
   return static_cast<int>(launch(p, storage, acc, compensated));
 }
 
+// A run of levels, one launch each, in order, on one stream: row i of the
+// host table, [n_levels, 5] int64, is level i's (idx_pool, fac_pool, tiles,
+// n_records, group_cols), and its launch is fd_level_gather_reduce's with
+// src = w.  The first failed launch stops the run: its cudaError_t is
+// returned and its row written to *failed.
+extern "C" int fd_levels_gather_reduce(void* w, const long long* table, int n_levels,
+                                       long long batch, int storage, int acc, int compensated,
+                                       void* stream, int* failed) {
+  for (int i = 0; i < n_levels; ++i) {
+    const long long* row = table + 5 * static_cast<int64_t>(i);
+    const Launch p{w, w, reinterpret_cast<const void*>(row[0]),
+                   reinterpret_cast<const void*>(row[1]), reinterpret_cast<const void*>(row[2]),
+                   Tile{}, static_cast<int>(row[3]), batch, row[4],
+                   static_cast<cudaStream_t>(stream)};
+    const cudaError_t err = p.tiles == nullptr ? cudaErrorInvalidValue
+                                               : launch(p, storage, acc, compensated);
+    if (err != cudaSuccess) {
+      *failed = i;
+      return static_cast<int>(err);
+    }
+  }
+  return 0;
+}
+
 // One bucket: idx [n_op, arity, count], fac [arity, count], rows from start;
 // a block takes `pieces` (1, 2, 4 or 8) pieces of an item of one row tile.
 extern "C" int fd_bucket_gather_reduce(void* w, const void* idx, const void* fac, int n_op,

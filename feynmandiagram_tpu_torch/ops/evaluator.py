@@ -20,6 +20,16 @@ package computes a product ``(w[i0] * w[i1] * ...) * fac`` and a power
 ``integer_pow(w[i], n) * fac``.  The two differ in rounding only: a few
 ulps of the accumulation type.
 
+On CUDA with the kernel, a pass launches from a *launch plan*, built at the
+first pass of each batch size and kept (``launch_plan``): the levels are cut
+at build time into *runs*, the longest sequences of consecutive levels that
+only launch (no CSR sum, no plain product or power), and each run is one C
+call that issues its levels' launches in order (``kernels.levels_gather_reduce``),
+from a host table of their records, column groups and tables prepared for
+that batch, with none of the per-launch checks, which the build and the plan
+made once.  A level outside every run runs as below.  Each launch is the one
+``level_gather_reduce`` would make, so the values are the same bit for bit.
+
 Each level runs in a profiler scope ``gL{NN}``, and within it the CSR sum
 in ``csr``, the level's one launch in ``fb{n}`` (``sb{n}`` when it holds
 only sum buckets; ``n`` buckets and plans), each plain product in
@@ -27,7 +37,9 @@ only sum buckets; ``n`` buckets and plans), each plain product in
 ``jax.named_scope`` names, read by ``benchmarks/profile_pass.py``.  A scope
 is entered only while a profiler runs or a capture is open
 (``utils.profiling.scope``); in a capture the scopes name the launches of
-the graph's manifest (``gL05/fb8``).
+the graph's manifest (``gL05/fb8``).  A run's C call runs in the scope
+``levels``, and its launches join a manifest under their levels' paths, as
+those of the level-by-level path do.
 
 JAX's evaluator was functional (``dynamic_update_slice`` on an immutable
 buffer); this one writes each plan's rows of ``w`` in place.  That is safe
@@ -46,7 +58,7 @@ eager.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -55,8 +67,12 @@ from .lowering import LoweredGraph, lower
 from .dtypes import default_device, default_dtype
 from .graphs import Captured, require_cuda
 from ..utils.profiling import scope
-from .kernels import (MAX_N_OP, LevelTables, cuda_type_codes, level_gather_reduce,
-                      level_gather_reduce_plain, pack_level)
+from .kernels import (MAX_N_OP, LevelRun, LevelTables, check_tables, cuda_type_codes,
+                      level_gather_reduce, level_gather_reduce_plain, levels_gather_reduce,
+                      on_device, pack_level, plan_run)
+
+# the launch plans an evaluator keeps, one a batch size, the newest
+PLANS_KEPT = 16
 
 
 @dataclass
@@ -214,6 +230,41 @@ def _upload(lowered: LoweredGraph, device, fac_dtype) -> List[_Level]:
     return levels
 
 
+def _only_launches(lvl: _Level) -> bool:
+    return lvl.csr is None and not lvl.prods and not lvl.pows
+
+
+def cut_runs(levels: List[_Level]) -> List[Union[_Level, List[_Level]]]:
+    """A pass's steps in order: each run, a list of the consecutive levels
+    that only launch (``_Level.tables``, no CSR sum, no plain product or
+    power), as long as it goes; each other level alone.  A level with
+    nothing to do is left out."""
+    steps: List[Union[_Level, List[_Level]]] = []
+    for lvl in levels:
+        if not _only_launches(lvl):
+            steps.append(lvl)
+        elif lvl.tables is not None:
+            if not steps or not isinstance(steps[-1], list):
+                steps.append([])
+            steps[-1].append(lvl)
+    return steps
+
+
+def launch_plan(ev: "Evaluator", w: torch.Tensor) -> list:
+    """``ev``'s steps (``Evaluator.steps``) at ``w``'s batch size, each run
+    prepared as a ``LevelRun`` (``kernels.plan_run``): what a pass on
+    buffers of ``w``'s shape launches.  ``launch_plan.built`` counts the
+    plans built."""
+    launch_plan.built += 1
+    return [plan_run(w, [lvl.tables for lvl in step],
+                     [f"{lvl.scope}/{lvl.bucket_scope}" for lvl in step],
+                     compensated=ev.compensated, acc_dtype=ev.acc_dtype)
+            if isinstance(step, list) else step for step in ev.steps]
+
+
+launch_plan.built = 0
+
+
 def _eval_levels(levels: List[_Level], w: torch.Tensor, acc_dtype=None,
                  compensated: bool = False, chunk_rows: Optional[int] = None,
                  kernel: bool = True) -> torch.Tensor:
@@ -280,7 +331,7 @@ class StaticPass:
             self.w[ev.rezero_rows] = 0
         if ev.n_const:
             self.w[ev.nl_input:ev.nl_input + ev.n_const] = ev.const_values[:, None]
-        _eval_levels(ev.levels, self.w, ev.acc_dtype, ev.compensated, ev.chunk_rows, ev.kernel)
+        ev.eval_levels(self.w)
         self.roots.copy_(self.w[ev.root_slots])
         return self.roots
 
@@ -313,6 +364,16 @@ class Evaluator:
         self.eager_zero_rows = torch.as_tensor(np.unique(eager), device=device) \
             if eager.size else None
         self.levels = _upload(lowered, device, acc_dtype or dtype)
+        # the launch path: the levels cut into runs, checked once here
+        self.steps = None
+        if kernel and device.type == "cuda":
+            self.steps = cut_runs(self.levels)
+            self.device_at = self.root_slots.device       # with its index
+            cuda_type_codes(dtype, acc_dtype or dtype, acc_dtype)
+            for lvl in self.levels:
+                if lvl.tables is not None:
+                    check_tables(lvl.tables, self.num_slots, self.device_at)
+        self._plans: Dict[int, list] = {}
 
     def leaf_input(self, leaf_values) -> torch.Tensor:
         """``leaf_values`` as a ``[rows, batch]`` tensor of the storage type
@@ -347,13 +408,42 @@ class Evaluator:
         ``roots``), or ``w`` with ``return_all``."""
         if self.n_const:
             w[self.nl_input:self.nl_input + self.n_const] = self.const_values[:, None]
-        _eval_levels(self.levels, w, self.acc_dtype, self.compensated, self.chunk_rows,
-                     self.kernel)
+        self.eval_levels(w)
         if self.return_all:
             return w
         with scope("roots"):
             out = w[self.root_slots]
             return out.to(self.acc_dtype) if self.acc_dtype is not None else out
+
+    def eval_levels(self, w: torch.Tensor) -> torch.Tensor:
+        """Run every level on ``w`` (``[num_slots, batch]`` of the storage
+        type) in place and return it.  On CUDA with the kernel the pass
+        launches from the launch plan of ``w``'s batch (``launch_plan``,
+        built at the first pass of that batch and kept): each run one
+        ``levels_gather_reduce`` on the current stream, each other level
+        as ``_eval_levels``; elsewhere every level runs through
+        ``_eval_levels``."""
+        if self.steps is None:
+            return _eval_levels(self.levels, w, self.acc_dtype, self.compensated,
+                                self.chunk_rows, self.kernel)
+        if w.shape[0] != self.num_slots or w.dtype != self.dtype \
+                or w.device != self.device_at or not w.is_contiguous():
+            raise ValueError(f"w must be a contiguous {self.dtype} [{self.num_slots}, batch] "
+                             f"tensor on {self.device_at}, got {w.dtype} {tuple(w.shape)} on "
+                             f"{w.device}")
+        plan = self._plans.get(w.shape[1])
+        if plan is None:
+            if len(self._plans) >= PLANS_KEPT:
+                del self._plans[next(iter(self._plans))]
+            plan = self._plans[w.shape[1]] = launch_plan(self, w)
+        with on_device(self.device_at):
+            stream = torch.cuda.current_stream(self.device_at).cuda_stream
+            for step in plan:
+                if isinstance(step, LevelRun):
+                    levels_gather_reduce(w, step, stream)
+                else:
+                    _eval_levels([step], w, self.acc_dtype, self.compensated, self.chunk_rows)
+        return w
 
     def static_pass(self, batch: int) -> StaticPass:
         """A new ``StaticPass`` of this evaluator at ``batch``."""

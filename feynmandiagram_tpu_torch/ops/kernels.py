@@ -17,7 +17,10 @@ reads a row that another one writes (``ops/evaluator.py::check_lowered``), so
 they may run at once.  Given ``src``, a level reads its rows from that buffer
 instead of ``w`` (the halo of a graph-sharded level,
 ``parallel/graph_shard.py``) and writes them to ``w``.
-``bucket_gather_reduce`` is the one-bucket call of the same kernel.  On a
+``bucket_gather_reduce`` is the one-bucket call of the same kernel.
+``levels_gather_reduce`` launches a run of levels from one C call, from a
+``LevelRun`` that ``plan_run`` prepared once for a batch size: the launches
+of ``level_gather_reduce`` on each, in order, with none of its checks.  On a
 CUDA tensor either wrapper launches the hand-written CUDA kernel in
 ``csrc/bucket_gather_reduce.cu``; on a CPU tensor it runs its plain PyTorch
 version.  Nothing falls back: a CUDA build or launch failure raises.
@@ -25,6 +28,7 @@ The kernel is built at first use (``ops/build.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -33,9 +37,10 @@ import numpy as np
 import torch
 
 from . import build
-from ..utils.profiling import launched
+from ..utils.profiling import launched, launched_run, scope
 
 MAX_N_OP = 4
+_OFF = contextlib.nullcontext()
 STORAGE_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 
 # (storage dtype, accumulation dtype) pairs the CUDA kernel is instantiated
@@ -86,6 +91,19 @@ def _bind(lib: ctypes.CDLL) -> None:
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_void_p]
+    fn = lib.fd_levels_gather_reduce
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def on_device(device: torch.device):
+    """``torch.cuda.device(device)`` where ``device`` (with its index) is not
+    the current device, else a context that does nothing: a launch on
+    the current device needs no guard."""
+    if torch.cuda.current_device() == device.index:
+        return _OFF
+    return torch.cuda.device(device)
 
 
 def cuda_type_codes(w_dtype: torch.dtype, fac_dtype: torch.dtype,
@@ -379,11 +397,15 @@ def _check_level(w: torch.Tensor, tables: LevelTables, src: Optional[torch.Tenso
             raise ValueError(f"src ({src.device}, {src.dtype}, batch {src.shape[1]}) differs "
                              f"from w ({w.device}, {w.dtype}, batch {w.shape[1]})")
         rows = src
-    if tables.row_end > w.shape[0]:
-        raise ValueError(f"the level writes rows up to {tables.row_end} of w's {w.shape[0]}")
-    if tables.max_index >= rows.shape[0]:
+    _check_fits(tables, w.shape[0], rows.shape[0])
+
+
+def _check_fits(tables: LevelTables, rows: int, read_rows: int) -> None:
+    if tables.row_end > rows:
+        raise ValueError(f"the level writes rows up to {tables.row_end} of w's {rows}")
+    if tables.max_index >= read_rows:
         raise ValueError(f"the level reads row {tables.max_index} of a buffer of "
-                         f"{rows.shape[0]} rows")
+                         f"{read_rows} rows")
 
 
 def level_gather_reduce_plain(w: torch.Tensor, tables: LevelTables, *,
@@ -426,19 +448,15 @@ def level_gather_reduce(w: torch.Tensor, tables: LevelTables, *, compensated: bo
         raise ValueError(f"level_gather_reduce runs on cuda or cpu tensors, "
                          f"not {w.device.type}")
     _check_level(w, tables, src)
-    records = tables.records_for(w, geometry)
-    if not (tables.idx.device == w.device and tables.fac.device == w.device
-            and records.device == w.device):
-        raise ValueError("w and the level tables must lie on one device")
+    _check_on(w.device, tables)
     storage, acc = cuda_type_codes(w.dtype, tables.fac.dtype, acc_dtype)
+    idx, fac, records, n_records, group_cols = level_row(w, tables, geometry)
     lib = build.load("bucket_gather_reduce", _bind)
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
         err = lib.fd_level_gather_reduce(
-            w.data_ptr(), (w if src is None else src).data_ptr(),
-            tables.idx.data_ptr(), tables.fac.data_ptr(),
-            records.data_ptr(), records.shape[0], w.shape[1], storage, acc,
-            int(compensated), _group_cols(w, tables.rows_touched, geometry), stream)
+            w.data_ptr(), (w if src is None else src).data_ptr(), idx, fac, records,
+            n_records, w.shape[1], storage, acc, int(compensated), group_cols, stream)
     if err != 0:
         raise RuntimeError(f"level_gather_reduce launch failed: cudaError {err}")
     launched(level_gather_reduce)
@@ -446,3 +464,101 @@ def level_gather_reduce(w: torch.Tensor, tables: LevelTables, *, compensated: bo
 
 level_gather_reduce.launches = 0
 level_gather_reduce.symbol = "gather_reduce_kernel"
+
+
+def _check_on(device: torch.device, tables: LevelTables) -> None:
+    if not all(t.device == device for t in (tables.idx, tables.fac, *tables.records.values())):
+        raise ValueError(f"w and the level tables must lie on one device, {device}")
+
+
+def check_tables(tables: LevelTables, rows: int, device: torch.device) -> None:
+    """Raise unless a level's launch on a buffer of ``rows`` rows on
+    ``device`` fits ``tables``: the rows it writes and reads inside the
+    buffer, and its tables on ``device``."""
+    _check_fits(tables, rows, rows)
+    _check_on(device, tables)
+
+
+def level_row(w: torch.Tensor, tables: LevelTables,
+              geometry: Optional[Tuple[int, int]] = None) -> Tuple[int, int, int, int, int]:
+    """What a level's launch on ``w`` takes of its tables, in the order of a
+    row of ``LevelRun.table`` (``RUN_FIELDS``): the pools' and the tile
+    table's addresses (``records_for``), its records and the column group's
+    width (``_group_cols``).  Only ``w``'s batch and element size count."""
+    records = tables.records_for(w, geometry)
+    return (tables.idx.data_ptr(), tables.fac.data_ptr(), records.data_ptr(),
+            records.shape[0], _group_cols(w, tables.rows_touched, geometry))
+
+
+# ---------------------------------------------------------------------------
+# a run of levels from one C call
+
+RUN_FIELDS = ("idx", "fac", "tiles", "n_records", "group_cols")
+
+
+@dataclass
+class LevelRun:
+    """The launches of a run of levels at one batch size, prepared once
+    (``plan_run``): ``table`` has a row of ``RUN_FIELDS`` a level, in level
+    order (``level_row``), on the host; ``paths`` the levels' scope paths
+    (``gL05/fb8``), which name the launches in a capture's manifest and in
+    errors; ``codes`` the (storage, accumulation) type codes and
+    ``compensated`` Kahan summation.  The tables the rows point into belong
+    to the caller, who keeps them alive."""
+    batch: int
+    table: np.ndarray
+    paths: Tuple[str, ...]
+    codes: Tuple[int, int]
+    compensated: bool
+
+    def __post_init__(self):
+        self._failed = ctypes.c_int(-1)
+        self._args = (self.table.ctypes.data, len(self.paths), self.batch, *self.codes,
+                      int(self.compensated))
+        self._failed_at = ctypes.addressof(self._failed)
+
+
+def plan_run(w: torch.Tensor, levels: Sequence[LevelTables], paths: Sequence[str], *,
+             compensated: bool = False, acc_dtype: Optional[torch.dtype] = None) -> LevelRun:
+    """Check once what ``level_gather_reduce`` checks at every launch, for
+    the levels ``levels`` in order on buffers of ``w``'s shape, dtype and
+    device, and pack their launches into a ``LevelRun``.  ``w`` only lends
+    its shape, dtype and device (a tensor expanded from one element does):
+    that each buffer is contiguous is the caller's to check."""
+    if w.dim() != 2 or w.dtype not in STORAGE_DTYPES:
+        raise ValueError(f"w must be a 2-D tensor of {STORAGE_DTYPES}, got {w.dtype} "
+                         f"{tuple(w.shape)}")
+    if not levels or len(levels) != len(paths):
+        raise ValueError(f"a run of {len(levels)} levels and {len(paths)} paths")
+    codes = cuda_type_codes(w.dtype, levels[0].fac.dtype, acc_dtype)
+    for tables in levels:
+        check_tables(tables, w.shape[0], w.device)
+        if tables.fac.dtype != levels[0].fac.dtype:
+            raise ValueError("the levels of a run take one factor dtype")
+    return LevelRun(w.shape[1], np.array([level_row(w, t) for t in levels], np.int64),
+                    tuple(paths), codes, compensated)
+
+
+def levels_gather_reduce(w: torch.Tensor, run: LevelRun, stream: int) -> None:
+    """Launch every level of ``run`` on ``w`` in place, in order, on
+    ``stream`` (a raw ``cudaStream_t``), from one C call: each launch is
+    the one ``level_gather_reduce(w, tables)`` makes, with none of its
+    checks.  ``w`` must be a contiguous CUDA buffer of the shape, dtype and
+    device that ``run`` was planned for, on the current device.  The C call
+    runs in the profiler scope ``levels``; a failed launch raises, naming
+    its level.  Outside a capture ``levels_gather_reduce.calls`` counts the
+    calls and ``levels_gather_reduce.launches`` the level launches they
+    issued, which ``level_gather_reduce.launches`` counts too; in a capture
+    each launch joins the manifest under its level's path
+    (``utils.profiling.launched_run``)."""
+    lib = build.load("bucket_gather_reduce", _bind)
+    with scope("levels"):
+        err = lib.fd_levels_gather_reduce(w.data_ptr(), *run._args, stream, run._failed_at)
+    if err != 0:
+        raise RuntimeError(f"level_gather_reduce launch failed at level "
+                           f"{run.paths[run._failed.value]}: cudaError {err}")
+    launched_run(levels_gather_reduce, level_gather_reduce, run.paths)
+
+
+levels_gather_reduce.calls = 0
+levels_gather_reduce.launches = 0

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from . import build
+from .kernels import on_device
 from ..frontends import BareGreenId, BareInteractionId
 from ..models.free_fermion import MAX_DERIV_ORDER, TAU_CUTOFF, _softplus_derivs
 from ..models.yukawa import EIGHT_PI
@@ -163,6 +164,7 @@ ITEM_LEAVES = 16     # leaf rows a work item holds (a basis row with more is spl
 THREADS = 128        # the kernel's block: this many columns, one a thread
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on sm_90
 MAX_DIM = 3          # components of a loop momentum the kernel takes
+LAUNCHES_KEPT = 16   # prepared launches a leaf evaluator keeps, one a shape of operands
 
 
 def _poly_table() -> np.ndarray:
@@ -556,6 +558,50 @@ def _smem_bytes(plan: LeafPlan, rows: int) -> int:
     return r16(rows * THREADS * size) + r16(nz * size) + 16 * (segs + leaves) + r16(4 * nz)
 
 
+class LeafLaunch:
+    """``leaf_eval``'s launch prepared once for one shape of its operands:
+    built from ``plan`` and operands ``varK``, ``varT`` and ``out`` whose
+    shapes, dtypes, devices and layouts it checks (``leaf_eval``'s checks),
+    it keeps the C call's arguments with the three addresses of a call left
+    open.  ``launch(varK, varT, out)`` then launches on operands of those
+    same shapes, dtypes, devices and layouts, unchecked, on the current
+    stream, and counts the launch in ``leaf_eval.launches``."""
+
+    def __init__(self, plan: LeafPlan, varK: torch.Tensor, varT: torch.Tensor,
+                 out: torch.Tensor):
+        batch = out.shape[-1]
+        _check_samples(plan, varK, varT, batch)
+        _check_out(plan, out, batch)
+        if varK.shape[0] > MAX_DIM:
+            raise ValueError(f"the kernel takes loop momenta of at most {MAX_DIM} components, "
+                             f"got {varK.shape[0]}")
+        smem = _smem_bytes(plan, varK.shape[0] * plan.n_loop + varT.shape[0])
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"a block takes {smem} bytes of shared memory, more than "
+                             f"{SMEM_LIMIT}")
+        self.device = out.device
+        self.empty = not plan.num_leaves
+        self._fn = None if self.empty else build.load("leaf_eval", _bind).fd_leaf_eval
+        self._tables = (plan.nz_l.data_ptr(), plan.nz_coef.data_ptr(), plan.segs.data_ptr(),
+                        plan.leaves.data_ptr(), plan.items.data_ptr())
+        self._rest = (plan.n_items, *plan.item_max, varK.shape[0], plan.n_loop, varT.shape[0],
+                      batch, plan.kF2, plan.beta, plan.lam, TAU_CUTOFF, plan.polys.ctypes.data,
+                      _TYPE_CODE[plan.compute_dtype], _TYPE_CODE[varK.dtype],
+                      _TYPE_CODE[out.dtype])
+        self._polys = plan.polys     # the host table the call reads
+
+    def launch(self, varK: torch.Tensor, varT: torch.Tensor, out: torch.Tensor) -> None:
+        if self.empty:
+            return
+        with on_device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            err = self._fn(varK.data_ptr(), varT.data_ptr(), *self._tables, out.data_ptr(),
+                           *self._rest, stream)
+        if err != 0:
+            raise RuntimeError(f"leaf_eval launch failed: cudaError {err}")
+        launched(leaf_eval)
+
+
 def leaf_eval(plan: LeafPlan, varK: torch.Tensor, varT: torch.Tensor,
               out: torch.Tensor) -> None:
     """Write every leaf row of ``out`` [num_leaves, batch] (row-major, of
@@ -566,37 +612,13 @@ def leaf_eval(plan: LeafPlan, varK: torch.Tensor, varT: torch.Tensor,
     A CUDA ``out`` launches ``leaf_eval_kernel`` on the current stream (and
     counts it in ``leaf_eval.launches``): blocks of ``THREADS`` columns, and
     a grid along the items of the kernel's own choice (``csrc/leaf_eval.cu``:
-    ``launch``).  It allocates nothing; loop momenta of more than
-    ``MAX_DIM`` components raise.  A CPU ``out`` runs ``leaf_eval_plain``; a
-    failed build or launch raises."""
+    ``launch``), after every check of ``LeafLaunch``.  It allocates nothing;
+    loop momenta of more than ``MAX_DIM`` components raise.  A CPU ``out``
+    runs ``leaf_eval_plain``; a failed build or launch raises."""
     if _check_device("leaf_eval", out):
         leaf_eval_plain(plan, varK, varT, out)
         return
-    batch = out.shape[-1]
-    _check_samples(plan, varK, varT, batch)
-    _check_out(plan, out, batch)
-    if varK.shape[0] > MAX_DIM:
-        raise ValueError(f"the kernel takes loop momenta of at most {MAX_DIM} components, "
-                         f"got {varK.shape[0]}")
-    smem = _smem_bytes(plan, varK.shape[0] * plan.n_loop + varT.shape[0])
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"a block takes {smem} bytes of shared memory, more than "
-                         f"{SMEM_LIMIT}")
-    if not plan.num_leaves:
-        return
-    lib = build.load("leaf_eval", _bind)
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = lib.fd_leaf_eval(
-            varK.data_ptr(), varT.data_ptr(), plan.nz_l.data_ptr(), plan.nz_coef.data_ptr(),
-            plan.segs.data_ptr(), plan.leaves.data_ptr(), plan.items.data_ptr(),
-            out.data_ptr(), plan.n_items, *plan.item_max, varK.shape[0], plan.n_loop,
-            varT.shape[0], batch, plan.kF2, plan.beta, plan.lam, TAU_CUTOFF,
-            plan.polys.ctypes.data, _TYPE_CODE[plan.compute_dtype], _TYPE_CODE[varK.dtype],
-            _TYPE_CODE[out.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"leaf_eval launch failed: cudaError {err}")
-    launched(leaf_eval)
+    LeafLaunch(plan, varK, varT, out).launch(varK, varT, out)
 
 
 leaf_eval.launches = 0
@@ -643,9 +665,11 @@ def make_leaf_evaluator(tables: LeafTables, *, beta: float, kF: float, lam: floa
     The values are computed in ``compute_dtype`` (float64 or float32) and
     rounded once to ``dtype``; ``compute_dtype=dtype`` computes in the
     storage type, as the JAX package does.  A call is one ``leaf_eval``
-    (profiler scope ``leaf``): on CUDA one launch of its kernel, on the CPU
-    its plain version; the samples go to the device in the scope
-    ``inputs``.  ``f.plan`` is the ``LeafPlan``.
+    (profiler scope ``leaf``): on the CPU its plain version; on CUDA one
+    launch of its kernel from the ``LeafLaunch`` prepared at the first call
+    of the operands' shapes, dtypes and layout and kept (the newest
+    ``LAUNCHES_KEPT``), so a call repeats none of its checks.  The samples go
+    to the device in the scope ``inputs``.  ``f.plan`` is the ``LeafPlan``.
     """
     device = torch.device(device) if device is not None else default_device()
     dtype = dtype or default_dtype(device)
@@ -658,6 +682,8 @@ def make_leaf_evaluator(tables: LeafTables, *, beta: float, kF: float, lam: floa
         x = torch.as_tensor(x, device=device)
         return (x if x.dtype in COMPUTE_DTYPES else x.to(compute_dtype)).contiguous()
 
+    launches: Dict[tuple, LeafLaunch] = {}
+
     def evaluate(varK, varT, out: Optional[torch.Tensor] = None) -> torch.Tensor:
         with scope("inputs"):
             varK = inputs(varK)
@@ -669,7 +695,16 @@ def make_leaf_evaluator(tables: LeafTables, *, beta: float, kF: float, lam: floa
             raise ValueError(f"out is {out.dtype} {tuple(out.shape)}, expected {dtype} "
                              f"{(tables.num_leaves, batch)}")
         with scope("leaf"):
-            leaf_eval(plan, varK, varT, out)
+            if device.type != "cuda":
+                leaf_eval(plan, varK, varT, out)
+                return out
+            key = (varK.shape, varT.shape, varK.dtype, out.device, out.stride())
+            launch = launches.get(key)
+            if launch is None:
+                if len(launches) >= LAUNCHES_KEPT:
+                    del launches[next(iter(launches))]
+                launch = launches[key] = LeafLaunch(plan, varK, varT, out)
+            launch.launch(varK, varT, out)
         return out
 
     evaluate.plan = plan

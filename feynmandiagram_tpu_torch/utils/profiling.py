@@ -13,7 +13,8 @@ What the JAX package has no counterpart of, since XLA runs its programs:
   Python, so nothing counts or names the kernels it launches.  While
   ``capturing`` is open, each launch wrapper's ``launched(kernel)`` keeps
   the kernel's symbol and the path of the scopes it ran in (``leaf``,
-  ``gL05/fb8``) in the graph's ``Manifest``, in launch order;
+  ``gL05/fb8``) in the graph's ``Manifest``, in launch order (a run of
+  levels launched from one C call, ``launched_run``, one entry a level);
   ``replayed(manifest, n)`` then adds ``n`` replays' launches to the
   wrappers' ``launches`` counters, which so count every launch the device
   runs, eager or replayed.  ``manifest(name)`` returns a live graph's
@@ -114,6 +115,22 @@ def launched(kernel: Callable) -> None:
         kernel.launches += 1
     else:
         _recording.append(Launch(kernel.symbol, "/".join(_path), kernel))
+
+
+def launched_run(launcher: Callable, kernel: Callable, paths) -> None:
+    """Count one call of ``launcher``, which issued a launch of ``kernel``
+    for each of ``paths``, in order (a run of levels: ``gL05/fb8``, ...).
+    Outside a capture ``launcher.calls`` grows by one, and
+    ``launcher.launches`` and ``kernel.launches`` by the launches.  In a
+    capture each launch joins the graph's manifest as ``launched`` keeps
+    it, its path under the scopes open there."""
+    if _recording is None:
+        launcher.calls += 1
+        launcher.launches += len(paths)
+        kernel.launches += len(paths)
+    else:
+        under = "".join(f"{name}/" for name in _path)
+        _recording.extend(Launch(kernel.symbol, under + path, kernel) for path in paths)
 
 
 @contextlib.contextmanager

@@ -135,6 +135,45 @@ def test_profile_pass_on_cpu(capsys):
     assert any(line.startswith("graph ") for line in out)
 
 
+def test_profile_pass_gives_a_runs_launches_back_to_their_levels(tmp_path):
+    """A card's trace of two passes, each one ``levels`` span whose C call
+    launched three level kernels (and made one other runtime call), one
+    kernel record lost: each record is its level's, by launch order within
+    its span."""
+    from feynmandiagram_tpu_torch.benchmarks import profile_pass
+
+    def span(name, ts, dur):
+        return {"ph": "X", "cat": "user_annotation", "name": name, "pid": 1, "tid": 1,
+                "ts": ts, "dur": dur}
+
+    def runtime(name, ts, corr):
+        return {"ph": "X", "cat": "cuda_runtime", "name": name, "pid": 1, "tid": 1, "ts": ts,
+                "dur": 1, "args": {"correlation": corr}}
+
+    def kernel(corr, dur):
+        return {"ph": "X", "cat": "kernel", "name": "gather_reduce_kernel<float>", "pid": 0,
+                "tid": 7, "ts": 1000 + corr, "dur": dur, "args": {"correlation": corr}}
+
+    events = [span("leaf", 50, 10), runtime("cudaLaunchKernel", 55, 100), kernel(100, 4.0)]
+    for p, t0 in enumerate((100, 300)):
+        events.append(span("levels", t0, 50))
+        corr = 10 * (p + 1)
+        events += [runtime("cudaLaunchKernel", t0 + 30, corr + 3),
+                   runtime("cudaGetLastError", t0 + 12, corr + 9),
+                   runtime("cudaLaunchKernel", t0 + 10, corr + 1),
+                   runtime("cudaLaunchKernel", t0 + 20, corr + 2)]
+        events += [kernel(corr + k, 1.0 + k) for k in (1, 2, 3) if (p, k) != (1, 2)]
+    trace = tmp_path / "trace.json"
+    trace.write_text(json.dumps({"traceEvents": events}))
+    runs = [("gL00/fb2", "gL01/fb3", "gL02/sb1")]
+    r = profile_pass.aggregate(str(trace), 2, True, runs)
+    assert r["level_op"] == {"leaf": [2.0, 0.5], "gL00/fb2": [2.0, 1.0],
+                             "gL01/fb3": [1.5, 0.5], "gL02/sb1": [4.0, 1.0]}
+    assert r["phase_op"]["graph"] == [7.5, 2.5] and r["level_kernels_in_graph"] == 2.5
+    assert r["level_host"]["levels"] == r["phase_host"]["graph"] == 50.0
+    assert r["unattributed_ops"] == 0
+
+
 def _reference_graft_entry():
     spec = importlib.util.spec_from_file_location("_ref_graft_entry",
                                                   os.path.join(REPO, "__graft_entry__.py"))
