@@ -25,4 +25,4 @@ def get_table_path() -> str:
 
 
 from .readfile import read_diagrams, read_vertex4_diagrams  # noqa: E402
-from .gv import diagsGV, diagsGV_ver4  # noqa: E402
+from .gv import diagsGV, diagsGV_series, diagsGV_ver4  # noqa: E402

@@ -23,7 +23,8 @@ What the JAX package has no counterpart of, since XLA runs its programs:
 - **set-up phases**: ``phase(name)`` times the front end, ``optimize_inplace``,
   ``taylorAD`` and ``compile_evaluator`` on ``time.perf_counter``, always
   (a few dozen records a build, none in a pass), and is a ``record_function``
-  span too while a profiler runs; ``phases()`` returns the records.
+  span too while a profiler runs; ``phases()`` returns the records;
+  ``count(name)`` adds to a set-up counter, ``counters()`` returns them.
 """
 from __future__ import annotations
 
@@ -218,6 +219,20 @@ def phases() -> List[Phase]:
     """The recorded set-up phases of this process, oldest first (the newest
     ``PHASES_KEPT``); each is recorded when it ends."""
     return list(_phases)
+
+
+_counts: "collections.Counter[str]" = collections.Counter()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the set-up counter ``name`` (what a build made, such as
+    ``diagsGV_series.partitions``); ``counters()`` returns them."""
+    _counts[name] += n
+
+
+def counters() -> Dict[str, int]:
+    """The set-up counters of this process (``count``), by name."""
+    return dict(_counts)
 
 
 @contextlib.contextmanager
