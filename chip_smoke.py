@@ -177,6 +177,18 @@ output line or more each:
    level launches a pass, all of them from the run launcher, one plan
    built; the eager call against the call before the plans bit for bit,
    and both calls' dispatch, call and host-only clocks in turns;
+10b. stretches of thin levels as column runs (``column run:`` and ``column
+   run time:`` lines, ``column_run_checks``; alone: ``python3 chip_smoke.py
+   --column-runs``): order-4 Gamma4 fused at 4096, 4097 and 16384, config 4
+   fused at 8192 and 16384 and the GV self-energy renormalized to order 6
+   at 4096, 8192 and 16384, the stretches the launch plan cuts; in the four
+   storage x accumulation pairs, plain and compensated, the eager pass from
+   the plan against the level-by-level path bit for bit over the whole
+   buffer, with the launches counted, and each stretch's column run alone
+   against its plain version bit for bit; the captured pass likewise in
+   float32; each stretch's column run timed against its levels' own
+   launches and its bound.  A level's launch count elsewhere in this script
+   is the levels launched, alone or in column runs;
 11. the whole pass captured as CUDA graphs, the counterpart of the JAX
    package's ``jit`` (``jit:``, ``jit mc:`` and ``jit time:`` lines):
    order-4 Gamma4 fused and bucketed through ``compile_evaluator(jit=True)``
@@ -359,6 +371,9 @@ PROBE_LINE = {"dma8": 39, "dmagrp": 61, "vmemrow": 82, "vmem8": 100, "acc": 122,
 # of its dispatch timing (a pool of PLAN_POOL host batches, as the benchmark's
 # call cell), and the host-only clock's calls and repeats
 PLAN_BATCHES = {"order-4 Gamma4 fused": 4096, "config 4 fused": 8192}
+# the column-run phase: each case's batches
+COLUMN_RUN_CASES = {"order-4 Gamma4 fused": (4096, 4097, 16384),
+                    "config 4 fused": (8192, 16384), "gvsigma6-ct series": (4096, 8192, 16384)}
 PLAN_CALLS, PLAN_POOL = 200, 16
 PLAN_HOST_CALLS, PLAN_HOST_REPS = 20, 5
 
@@ -438,6 +453,7 @@ def launch_plan_checks(dev, smi: str, cases) -> dict:
     from feynmandiagram_tpu_torch.utils.profiling import scope
 
     level_fn, run_fn = kernels.level_gather_reduce, kernels.levels_gather_reduce
+    col_fn = kernels.column_run_gather_reduce
     rng = np.random.default_rng(SEED)
 
     def host_ms(fn):
@@ -486,18 +502,20 @@ def launch_plan_checks(dev, smi: str, cases) -> dict:
             stepwise.steps = None
             runs = sum(1 for step in planned.steps if isinstance(step, list))
             built = evaluator_mod.launch_plan.built
-            level_fn.launches = run_fn.launches = run_fn.calls = 0
+            level_fn.launches = run_fn.launches = run_fn.calls = col_fn.levels = 0
             got = [planned(leaves) for _ in range(3)]
-            counted = (level_fn.launches, run_fn.launches, run_fn.calls,
+            counted = (level_fn.launches + col_fn.levels,
+                       run_fn.launches + col_fn.levels, run_fn.calls,
                        evaluator_mod.launch_plan.built - built)
-            level_fn.launches = 0
+            level_fn.launches = col_fn.levels = 0
             want = stepwise(leaves)
             torch.cuda.synchronize()
             same = all(torch.equal(g, want) for g in got)
             share = counted[1] / max(counted[0], 1)
             print(f"launch plan: {label}, batch {batch} {name}: 3 passes from the launch plan "
-                  f"against the level-by-level path bit for bit {same}; {counted[0]} level "
-                  f"launches ({n_levels} a pass expected), {counted[1]} of them from "
+                  f"against the level-by-level path bit for bit {same}; {counted[0]} levels "
+                  f"launched, alone or in column runs ({n_levels} a pass expected), "
+                  f"{counted[1]} of them from "
                   f"{counted[2]} run launcher calls ({runs} run(s) a pass; share "
                   f"{100 * share:.1f}%), {counted[3]} plan(s) built; the level-by-level pass "
                   f"{level_fn.launches} launches", flush=True)
@@ -587,6 +605,369 @@ def launch_plan_checks(dev, smi: str, cases) -> dict:
     return report
 
 
+def queued_ms(fn, n=1):
+    """Device time per call of fn with the host out of the way: n calls
+    are enqueued between two CUDA events behind a sleep kernel, which is
+    lengthened until the first event is still pending when the host is
+    done, so that the device never waits for the host.  The time counts
+    the device's gaps between launches.  Median of QUEUED_REPS; fn must
+    not wait for the device.  Kernel times are not taken from the
+    profiler here: late in this script its traces on the card lost a
+    pass's first kernel and, once, halved every kernel's duration."""
+    return float(queued_each_ms([lambda: [fn() for _ in range(n)]])[0]) / n
+
+
+def queued_each_ms(fns):
+    """queued_ms of each of fns, run once each in order in one queue
+    behind one sleep kernel, with an event between them: their device
+    times as they follow one another in a pass."""
+    import numpy as np
+    import torch
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    cycles, runs = 10 ** 7, []
+    while len(runs) < QUEUED_REPS:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(len(fns) + 1)]
+        torch.cuda._sleep(cycles)
+        events[0].record()
+        for fn, event in zip(fns, events[1:]):
+            fn()
+            event.record()
+        starved = events[0].query()
+        torch.cuda.synchronize()
+        if not starved:
+            runs.append([a.elapsed_time(b) for a, b in zip(events, events[1:])])
+        elif cycles < 2 ** 32:
+            cycles *= 2
+        else:
+            fail("the host did not enqueue a timed call within a sleep of 2^32 cycles")
+    return np.median(np.asarray(runs), axis=0)
+
+
+def column_run_cases(dev, built=None):
+    """The column-run phase's cases: ``(label, compiled, n_loop, n_tau)`` of
+    order-4 Gamma4 fused, config 4 fused and the renormalized GV
+    self-energy to order 6 (``diagsGV_series``), float32; those that
+    ``built`` (label -> ``(compiled, n_loop, n_tau)``) holds are taken from
+    it, the others built here."""
+    import torch
+    from feynmandiagram_tpu_torch.backends import compile_evaluator
+    from feynmandiagram_tpu_torch.benchmarks.bench_config4 import config4_roots
+    from feynmandiagram_tpu_torch.benchmarks.gamma4_orders import vertex4_roots
+    from feynmandiagram_tpu_torch.frontends import NoHartree
+    from feynmandiagram_tpu_torch.frontends.gv import diagsGV_series
+
+    out = []
+    for label in COLUMN_RUN_CASES:
+        if label in (built or {}):
+            out.append((label, *built[label]))
+            continue
+        if label == "order-4 Gamma4 fused":
+            roots, para = vertex4_roots(4)
+            n_loop, n_tau = para.totalLoopNum, para.totalTauNum
+        elif label == "config 4 fused":
+            roots, para, _ = config4_roots(4)
+            n_loop, n_tau = para.totalLoopNum, para.totalTauNum
+        else:
+            roots, _, n_loop, n_tau = diagsGV_series("sigma", 6, filter=(NoHartree,),
+                                                     spin_polar_para=0.0)
+        c = compile_evaluator(roots, max_loop_num=n_loop, beta=BETA, kF=KF, lam=LAM,
+                              device=dev, dtype=torch.float32, sum_mode="fused")
+        out.append((label, c, n_loop, n_tau))
+    return out
+
+
+def stretch_rows(run):
+    """``(outside, written)``, sorted arrays: the distinct rows of ``w``
+    that a column run reads as they were before its launch (not yet
+    written by an earlier level of its stretch), and the rows it writes.
+    One launch moves those rows at the least."""
+    import numpy as np
+    from feynmandiagram_tpu_torch.ops import kernels
+
+    rec, g = run.host_rows, kernels.RUN_GATHERS
+    n_g = rec[:, 1]
+    outside, written = set(), set()
+    bounds = run.level_rows.tolist()
+    for r0, r1 in zip(bounds, bounds[1:]):
+        read = [rec[r0:r1, 4:4 + g][np.arange(g) < n_g[r0:r1, None]]]
+        read += [run.host_extra_idx[rec[i, 2]:rec[i, 2] + n_g[i] - g]
+                 for i in range(r0, r1) if n_g[i] > g]
+        outside |= set((np.concatenate(read) & 0x7fffffff).tolist()) - written
+        written |= set(rec[r0:r1, 0].tolist())
+    return np.array(sorted(outside), np.int64), np.array(sorted(written), np.int64)
+
+
+def column_run_checks(dev, smi: str, cases) -> dict:
+    """``column run:`` lines.  For each case ``(label, compiled, n_loop,
+    n_tau)`` at each of its COLUMN_RUN_CASES batches, the graph phase on the
+    leaves of one draw: the stretches that the launch plan cuts (each run
+    of two or more consecutive thin levels one launch of
+    ``column_run_gather_reduce_kernel``).  In the four (storage,
+    accumulation) pairs, each plain and compensated: the eager pass from
+    the plan against the level-by-level path (``Evaluator.steps`` None: a
+    checked ``level_gather_reduce`` a level) bit for bit over the whole
+    buffer, with the launch counters (level launches, column runs and the
+    levels they computed, all levels once); then each stretch alone, from
+    the buffer as the levels before it leave it (the lowering reuses rows,
+    so the pass's final buffer will not do), the rows it writes and does
+    not read first set to NaN: its column run against its plain version
+    (``column_run_gather_reduce_plain``) and its levels' own launches, bit
+    for bit over the whole buffer, every row it writes finite; the captured pass (``ops.graphs``) bit for bit
+    against the level-by-level path, in float32 plain and compensated,
+    with its manifest and a replay's counts.  Then, float32 (``column run
+    time:``): the graph phase with and without column runs, and each
+    stretch alone as one column run against its levels' own launches, its
+    own bound (``stretch_rows``), the sum of its levels' byte bounds and
+    its plain version."""
+    import numpy as np
+    import torch
+    from feynmandiagram_tpu_torch.ops import kernels
+    from feynmandiagram_tpu_torch.ops.evaluator import level_buckets, make_evaluator
+    from feynmandiagram_tpu_torch.ops.graphs import capture, replay
+
+    rng = np.random.default_rng(SEED)
+    level_fn, run_fn, col = (kernels.level_gather_reduce, kernels.levels_gather_reduce,
+                             kernels.column_run_gather_reduce)
+    f32 = torch.float32
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def bits(x):
+        return x.view({8: torch.int64, 4: torch.int32, 2: torch.int16}[x.element_size()])
+
+    def zero_counts():
+        level_fn.launches = col.launches = col.levels = 0
+        run_fn.calls = run_fn.launches = 0
+
+    def counts():
+        return (level_fn.launches, col.launches, col.levels)
+
+    def fill(ev, w, leaves):
+        """The rows a pass reads before its levels: the leaves, the constants."""
+        w[:ev.nl_input] = leaves.to(w.dtype)
+        if ev.n_const:
+            w[ev.nl_input:ev.nl_input + ev.n_const] = ev.const_values[:, None]
+
+    def plan(ev, w, levels, apart=False):
+        """The launch plan of ``levels`` of ev on w's shape; ``apart``: with
+        no level thin, a launch a level."""
+        thin = kernels.THIN_BYTES
+        kernels.THIN_BYTES = 0 if apart else thin
+        try:
+            return kernels.plan_run(w, [lvl.tables for lvl in levels],
+                                    [f"{lvl.scope}/{lvl.bucket_scope}" for lvl in levels],
+                                    compensated=ev.compensated, acc_dtype=ev.acc_dtype)
+        finally:
+            kernels.THIN_BYTES = thin
+
+    def stretches_of(ev, run):
+        """``(path, first, levels, column run)`` of each stretch of run,
+        ev's one run of levels, ``first`` the index of its first level."""
+        levels, out, first = ev.steps[0], [], 0
+        for path, n in zip(run.paths, run.table[:, 5].tolist()):
+            if n:
+                out.append((path, first, levels[first:first + n], run.column_runs[len(out)]))
+            first += max(n, 1)
+        return out
+
+    report = {}
+    for label, c, n_loop, n_tau in cases:
+        n_levels = sum(1 for lvl in c.lowered.levels if level_buckets(lvl))
+        for batch in COLUMN_RUN_CASES[label]:
+            vk = torch.as_tensor(rng.standard_normal((3, n_loop, batch), dtype=np.float32),
+                                 device=dev)
+            vt = torch.as_tensor(rng.random((n_tau, batch), dtype=np.float32)
+                                 * np.float32(BETA), device=dev)
+            leaves = c.leaf_fn(vk, vt)
+            probe = make_evaluator(c.lowered, device=dev, dtype=f32)
+            if len(probe.steps) != 1 or not isinstance(probe.steps[0], list):
+                fail(f"column run {label}: the pass is not one run of levels")
+            w = probe.buffer(batch)
+            run = plan(probe, w, probe.steps[0])
+            levels_of = run.table[:, 5].tolist()
+            stretch = [(p, n) for p, n in zip(run.paths, levels_of) if n]
+            n_level = sum(1 for n in levels_of if n == 0)
+            print(f"column run: {label}, batch {batch} f32: {len(run.paths)} launches a pass, "
+                  f"{n_level} level launches and {len(stretch)} column run(s) "
+                  f"({', '.join(f'{p} of {n} levels' for p, n in stretch) or 'none'}) for "
+                  f"{n_levels} levels", flush=True)
+            if n_level + sum(n for _, n in stretch) != n_levels:
+                fail(f"column run {label}, batch {batch}: the plan covers "
+                     f"{n_level + sum(n for _, n in stretch)} of {n_levels} levels")
+            rep = {"levels": n_levels, "stretches": [[p, n] for p, n in stretch],
+                   "level_launches": n_level, "checks": {}}
+            for storage, acc in ((f32, None), (torch.float64, None), (f32, torch.float64),
+                                 (torch.bfloat16, f32)):
+                for comp in (False, True):
+                    name = (f"{str(storage)[6:]}/{str(acc or storage)[6:]}"
+                            f"{' compensated' if comp else ''}")
+                    ev = make_evaluator(c.lowered, device=dev, dtype=storage, acc_dtype=acc,
+                                        compensated=comp)
+                    ref = make_evaluator(c.lowered, device=dev, dtype=storage, acc_dtype=acc,
+                                         compensated=comp)
+                    ref.steps = None
+                    w0 = ev.buffer(batch)
+                    fill(ev, w0, leaves)
+                    w1 = w0.clone()
+                    own = plan(ev, w0, ev.steps[0])     # the stretches at this element size
+                    own_levels = own.table[:, 5].tolist()
+                    want_counts = (sum(1 for n in own_levels if n == 0),
+                                   sum(1 for n in own_levels if n), sum(own_levels))
+                    own_runs = ", ".join(p for p, n in zip(own.paths, own_levels) if n)
+                    zero_counts()
+                    ev.eval_levels(w0)
+                    got = counts()
+                    ref.eval_levels(w1)
+                    torch.cuda.synchronize()
+                    same = torch.equal(bits(w0), bits(w1))
+                    # each stretch alone, from the buffer as the levels
+                    # before it leave it, the rows it writes but does not
+                    # read first set to NaN: its column run against its
+                    # plain version and its levels' own launches
+                    plain_same = []
+                    for _, first, part, colrun in stretches_of(ev, own):
+                        pre = w1.clone()
+                        fill(ev, pre, leaves)
+                        if first:
+                            kernels.levels_gather_reduce(
+                                pre, plan(ev, pre, ev.steps[0][:first], apart=True), stream)
+                        outside, written = stretch_rows(colrun)
+                        poison = torch.as_tensor(np.setdiff1d(written, outside), device=dev)
+                        pre[poison] = float("nan")
+                        wl, wp = pre.clone(), pre.clone()
+                        kernels.levels_gather_reduce(pre, plan(ev, pre, part), stream)
+                        kernels.levels_gather_reduce(wl, plan(ev, wl, part, apart=True), stream)
+                        kernels.column_run_gather_reduce_plain(wp, colrun, compensated=comp,
+                                                               acc_dtype=acc)
+                        torch.cuda.synchronize()
+                        plain_same.append(torch.equal(bits(pre), bits(wp))
+                                          and torch.equal(bits(pre), bits(wl))
+                                          and bool(torch.isfinite(pre[poison]).all()))
+                        del pre, wl, wp
+                    check = {"eager_bit_for_bit": same, "counts": list(got),
+                             "column_runs": own_runs.split(", ") if own_runs else [],
+                             "plain_bit_for_bit": plain_same,
+                             "finite": bool(torch.isfinite(w1[ref.root_slots]).all())}
+                    line = (f"column run: {label}, batch {batch} {name}: the eager pass from the "
+                            f"plan against the level-by-level path, the whole buffer bit for bit "
+                            f"{same}; launches counted (level, column runs, their levels) "
+                            f"{got}, expected {want_counts} (column runs: "
+                            f"{own_runs or 'none'}); each column run alone, from the buffer "
+                            f"the levels before it leave, against its plain version and its "
+                            f"levels' own launches, the whole buffer bit for bit and its rows "
+                            f"written {plain_same or 'none'}")
+                    if not same or got != want_counts or not all(plain_same):
+                        fail(line)
+                    if storage == f32 and acc is None:
+                        sp = ev.static_pass(batch)
+                        sp.leaves.copy_(leaves)
+                        graph, out = capture(sp.run)
+                        manifest = [(x.symbol, x.path, x.levels) for x in graph.manifest
+                                    if x.kernel in (level_fn, col)]
+                        zero_counts()
+                        replay(graph, 2)
+                        torch.cuda.synchronize()
+                        replayed = counts()
+                        cap_same = torch.equal(bits(out), bits(w1[ref.root_slots]))
+                        want_manifest = [(col.symbol if n else level_fn.symbol, p, max(n, 1))
+                                         for p, n in zip(own.paths, own_levels)]
+                        check.update({"captured_bit_for_bit": cap_same,
+                                      "replay_counts": list(replayed)})
+                        planned = manifest == want_manifest
+                        line += (f"; captured: roots after 2 replays bit for bit {cap_same}, "
+                                 f"manifest {'as planned' if planned else manifest}, 2 replays "
+                                 f"counted {replayed}")
+                        if not cap_same or not planned \
+                                or replayed != tuple(2 * x for x in want_counts):
+                            fail(line)
+                        del graph, out, sp
+                    print(line, flush=True)
+                    rep["checks"][name] = check
+                    del ev, ref, w0, w1, own
+                    torch.cuda.empty_cache()
+            # times, float32
+            fill(probe, w, leaves)
+            off = plan(probe, w, probe.steps[0], apart=True)
+
+            def timed(r):
+                # the launches queued behind one sleep stay well inside the
+                # device's queue of pending launches
+                reps = max(1, min(40, int(2e5 / batch), 400 // len(r.paths)))
+                return queued_ms(lambda: kernels.levels_gather_reduce(w, r, stream), n=reps)
+
+            t_on, t_off = timed(run), timed(off)
+            per = []
+            for path, _, part, colrun in stretches_of(probe, run):
+                read, written = map(len, stretch_rows(colrun))
+                w_plain = w.clone()
+                kernels.column_run_gather_reduce_plain(w_plain, colrun)
+                torch.cuda.synchronize()
+                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                e0.record()
+                kernels.column_run_gather_reduce_plain(w_plain, colrun)
+                e1.record()
+                torch.cuda.synchronize()
+                per.append({"stretch": path, "levels": len(part),
+                            "column_run_ms": timed(plan(probe, w, part)),
+                            "level_launches_ms": timed(plan(probe, w, part, apart=True)),
+                            "bound_ms": (read + written) * batch * 4 / HBM_BYTES_PER_S * 1e3,
+                            "rows_read": read, "rows_written": written,
+                            "level_bounds_ms": sum(lvl.tables.rows_touched for lvl in part)
+                            * batch * 4 / HBM_BYTES_PER_S * 1e3,
+                            "plain_ms": e0.elapsed_time(e1)})
+                del w_plain
+            print(f"column run time: {label}, batch {batch} f32: the graph phase with / without "
+                  f"column runs {t_on:.4f} / {t_off:.4f} ms ({t_off / t_on:.2f}x); "
+                  + "; ".join(f"{x['stretch']} ({x['levels']} levels) alone: one column run "
+                              f"{x['column_run_ms']:.4f} ms, its level launches "
+                              f"{x['level_launches_ms']:.4f} ms, its own bound "
+                              f"{x['bound_ms']:.4f} ms ({x['rows_read']} rows read from "
+                              f"outside, {x['rows_written']} written; "
+                              f"{x['bound_ms'] / x['column_run_ms']:.2f} of it), its levels' "
+                              f"bounds summed {x['level_bounds_ms']:.4f} ms, its plain "
+                              f"version {x['plain_ms']:.4f} ms (one call, events)"
+                              for x in per)
+                  + f"  [{smi}]", flush=True)
+            rep.update({"graph_ms": t_on, "graph_ms_without": t_off, "stretch_times": per})
+            report[f"{label} {batch}"] = rep
+            del probe, w, run, off, leaves, vk, vt
+            torch.cuda.empty_cache()
+    return report
+
+
+def column_run_main() -> None:
+    """``python3 chip_smoke.py --column-runs``: the card, the level kernel's
+    build and the column-run phase alone."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.modules["jax"] = None
+    sys.modules["feynmandiagram_tpu"] = None
+    from feynmandiagram_tpu_torch.benchmarks import card_name
+    from feynmandiagram_tpu_torch.ops import build
+
+    smi = card_name()
+    print(f"card: {smi}", flush=True)
+    t0 = time.perf_counter()
+    for name in ("bucket_gather_reduce", "leaf_eval"):
+        build.build(name)
+    print(f"build: bucket_gather_reduce, leaf_eval in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    cases = column_run_cases(dev)
+    print(f"column run: cases built in {time.perf_counter() - t0:.1f} s", flush=True)
+    report = column_run_checks(dev, smi, cases)
+    print(f"chip_smoke: the whole run took {time.perf_counter() - STARTED:.1f} s", flush=True)
+    print(json.dumps({"column_runs": report}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0)}}),
+          flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -616,6 +997,16 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     kernel_fn, plain_fn = kernels.bucket_gather_reduce, kernels.bucket_gather_reduce_plain
     level_fn, level_plain = kernels.level_gather_reduce, kernels.level_gather_reduce_plain
+    col_fn = kernels.column_run_gather_reduce
+
+    def zero_levels():
+        """Zero the counts of the levels launched: alone, and in column runs."""
+        level_fn.launches = col_fn.launches = col_fn.levels = 0
+
+    def levels_run():
+        """The levels launched since zero_levels: each level's own launches
+        and the levels that column runs computed."""
+        return level_fn.launches + col_fn.levels
 
     # -- 1. card
     smi = card_name()
@@ -857,12 +1248,13 @@ def main() -> None:
             batch = vt.shape[-1]
             ref = ref_graph(ref_leaf(vk, vt))
             torch.cuda.synchronize()
-            kernel_fn.launches = level_fn.launches = 0
+            kernel_fn.launches = 0
+            zero_levels()
             leaf_eval.leaf_eval.launches = 0
             got = c(vk, vt)
             torch.cuda.synchronize()
-            if level_fn.launches != n_levels or kernel_fn.launches != 0:
-                fail(f"{label}, batch {batch}: {level_fn.launches} level and "
+            if levels_run() != n_levels or kernel_fn.launches != 0:
+                fail(f"{label}, batch {batch}: {levels_run()} level and "
                      f"{kernel_fn.launches} bucket launches in a pass, expected {n_levels} (one "
                      f"per level that holds buckets or plans) and 0")
             if leaf_launches() != 1:
@@ -919,42 +1311,6 @@ def main() -> None:
         e1.record()
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / n
-
-    def queued_ms(fn, n=1):
-        """Device time per call of fn with the host out of the way: n calls
-        are enqueued between two CUDA events behind a sleep kernel, which is
-        lengthened until the first event is still pending when the host is
-        done, so that the device never waits for the host.  The time counts
-        the device's gaps between launches.  Median of QUEUED_REPS; fn must
-        not wait for the device.  Kernel times are not taken from the
-        profiler here: late in this script its traces on the card lost a
-        pass's first kernel and, once, halved every kernel's duration."""
-        return float(queued_each_ms([lambda: [fn() for _ in range(n)]])[0]) / n
-
-    def queued_each_ms(fns):
-        """queued_ms of each of fns, run once each in order in one queue
-        behind one sleep kernel, with an event between them: their device
-        times as they follow one another in a pass."""
-        for fn in fns:
-            fn()
-        torch.cuda.synchronize()
-        cycles, runs = 10 ** 7, []
-        while len(runs) < QUEUED_REPS:
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(len(fns) + 1)]
-            torch.cuda._sleep(cycles)
-            events[0].record()
-            for fn, event in zip(fns, events[1:]):
-                fn()
-                event.record()
-            starved = events[0].query()
-            torch.cuda.synchronize()
-            if not starved:
-                runs.append([a.elapsed_time(b) for a, b in zip(events, events[1:])])
-            elif cycles < 2 ** 32:
-                cycles *= 2
-            else:
-                fail("the host did not enqueue a timed call within a sleep of 2^32 cycles")
-        return np.median(np.asarray(runs), axis=0)
 
     lead_names = set()
 
@@ -1096,12 +1452,13 @@ def main() -> None:
             def one():
                 mc_run(c.fn, iters=1, seed=SEED, **mc_kw)
 
-            level_fn.launches = kernel_fn.launches = 0
+            kernel_fn.launches = 0
+            zero_levels()
             leaf_eval.leaf_eval.launches = 0
             mc_run(c.fn, iters=3, seed=SEED, **mc_kw)
             torch.cuda.synchronize()
-            if level_fn.launches != 3 * n_levels or kernel_fn.launches != 0:
-                fail(f"{label} mc_run: {level_fn.launches} level and {kernel_fn.launches} "
+            if levels_run() != 3 * n_levels or kernel_fn.launches != 0:
+                fail(f"{label} mc_run: {levels_run()} level and {kernel_fn.launches} "
                      f"bucket launches in 3 passes, expected {3 * n_levels} and 0")
             if leaf_launches() != 3:
                 fail(f"{label} mc_run: the leaf kernel launched {leaf_launches()} times in 3 "
@@ -1429,10 +1786,11 @@ def main() -> None:
             leaves = leaf32(vk, vt)
             want = single(leaves)
             torch.cuda.synchronize()
-            level_fn.launches = kernel_fn.launches = 0
+            kernel_fn.launches = 0
+            zero_levels()
             got = sh(leaves)
             torch.cuda.synchronize()
-            n_launch = level_fn.launches
+            n_launch = levels_run()
             ref = plain64(leaf64(vk, vt))
             d = (got.double() - ref).abs()
             rel = (d.max(dim=1).values / ref.abs().max(dim=1).values).max().item()
@@ -1515,12 +1873,13 @@ def main() -> None:
         evaluator on the same draws, bit for bit or within SHARD_MC_TOL.
         Returns the step's planner stats and whether the means were bit for
         bit."""
-        level_fn.launches = kernel_fn.launches = 0
+        kernel_fn.launches = 0
+        zero_levels()
         sh_means, sh_step, sh_mesh = config5_serving.serve(
             low_s, tables_s, device=dev, batch_per_device=BATCH, iters=SHARD_MC_ITERS,
             seed=SEED)
         torch.cuda.synchronize()
-        mc_launch = level_fn.launches
+        mc_launch = levels_run()
         n_batch = sh_mesh.shape["batch"]
         single_s = make_evaluator(low_s, device=dev, dtype=torch.float32)
         leaf_s = make_leaf_evaluator(tables_s, beta=BETA, kF=KF, lam=LAM, device=dev,
@@ -1645,10 +2004,11 @@ def main() -> None:
         hub_varT[0] = 0.0
         hub_ref = plain_hs.fn(hub_varT, HUBBARD_U)
         torch.cuda.synchronize()
-        level_fn.launches = kernel_fn.launches = 0
+        kernel_fn.launches = 0
+        zero_levels()
         hub_got = hs.fn(hub_varT, HUBBARD_U)
         torch.cuda.synchronize()
-        n_launch = level_fn.launches
+        n_launch = levels_run()
         if n_launch != HUBBARD_BUCKET_LEVELS[order] or kernel_fn.launches != 0:
             fail(f"Hubbard order {order}: {n_launch} level and {kernel_fn.launches} bucket "
                  f"launches in a pass, expected {HUBBARD_BUCKET_LEVELS[order]} (one per level "
@@ -2158,11 +2518,12 @@ def main() -> None:
         low = lower(gs, leafmap_of(gs), sum_mode="fused", cse=True)
         nl = low.num_leaves - len(low.const_slots)
         n_lv = sum(1 for lvl in low.levels if level_buckets(lvl))
-        level_fn.launches = kernel_fn.launches = 0
+        kernel_fn.launches = 0
+        zero_levels()
         ones = make_evaluator(low, device=dev, dtype=torch.float64)(np.ones((nl, BATCH)))
         torch.cuda.synchronize()
-        if level_fn.launches != n_lv or kernel_fn.launches != 0:
-            fail(f"gv counterterms, {label}: {level_fn.launches} level launches, expected {n_lv}")
+        if levels_run() != n_lv or kernel_fn.launches != 0:
+            fail(f"gv counterterms, {label}: {levels_run()} level launches, expected {n_lv}")
         host = [eval_graph(g) for g in gs]
         vals = gen.uniform(0.5, 1.5, (nl, BATCH))
         got = make_evaluator(low, device=dev, dtype=torch.float32)(vals)
@@ -2193,10 +2554,10 @@ def main() -> None:
                                                          key=lambda kv: kv[1])], device=dev)
     leaves = c4g.leaf_fn(*gv_samples(sizes4g, BATCH))
     n_lv = sum(1 for lvl in c4g.lowered.levels if level_buckets(lvl))
-    level_fn.launches = 0
+    zero_levels()
     want = c4g.graph_fn(leaves)
     torch.cuda.synchronize()
-    launched = level_fn.launches
+    launched = levels_run()
     got = src_fn(leaves[rows])
     src_rel = ((got - want).abs().max(dim=1).values / want.abs().max(dim=1).values).max().item()
     n_nodes = len(to_python_str(roots4g)[0].splitlines()) - 5
@@ -2217,6 +2578,9 @@ def main() -> None:
         mc_run(c.fn, iters=1, seed=SEED, **mc_kw)
 
     pass_q = queued_ms(one_pass)
+    # the launches of a pass: a level's own, or a column run's over a stretch
+    plan_launches = sum(len(step.paths) if isinstance(step, kernels.LevelRun) else 1
+                        for step in c.graph_fn._plans[BATCH])
     phases_ms = sum(v[0] for v in prof["phase_op"].values()) / 1e3
     graph_ms = prof["phase_op"].get("graph", [0.0])[0] / 1e3
     print(f"gv profile: profile_pass 4 {BATCH} 20 --levels in a fresh process ({prof_s:.1f} s, "
@@ -2224,7 +2588,8 @@ def main() -> None:
           f"phases' device time {phases_ms:.4f} ms a pass ({phases_ms / pass_q:.3f} of "
           f"the pass's busy time {pass_q:.4f} ms by queued_ms here; limit {PROFILE_COVER}), "
           f"graph {graph_ms:.4f} ms, {prof['level_kernels_in_graph']:.1f} level kernels a pass "
-          f"inside level scopes (expected {launches['fused']}), leaf kernels a pass by name "
+          f"inside level scopes (expected {plan_launches}: the launch plan's), leaf kernels "
+          f"a pass by name "
           f"{prof['leaf_kernels']}, "
           f"{prof['unattributed_ops']:.1f} device ops a pass without a launching call  [{smi}]",
           flush=True)
@@ -2233,9 +2598,9 @@ def main() -> None:
     if not phases_ms >= PROFILE_COVER * pass_q:
         fail(f"profile_pass: phases hold {phases_ms:.4f} ms of a {pass_q:.4f} ms pass: the trace "
              f"lost kernels")
-    if prof["level_kernels_in_graph"] != launches["fused"]:
+    if prof["level_kernels_in_graph"] != plan_launches:
         fail(f"profile_pass: {prof['level_kernels_in_graph']} level kernels a pass attributed to "
-             f"level scopes, expected {launches['fused']}")
+             f"level scopes, expected {plan_launches}")
     # what the scopes cost with no profiler running: the same pass with
     # scope() and with a bare null context in its place, in turns
     scope_fns = {m: m.scope for m in (mc_mod, evaluator_mod, leaf_eval_mod)}
@@ -2322,18 +2687,18 @@ def main() -> None:
     ref = make_evaluator(c64.lowered, device=dev, dtype=torch.float64, kernel=False)(
         make_leaf_evaluator(c64.tables, beta=BETA, kF=KF, lam=LAM, device=dev,
                             dtype=torch.float64)(varK, varT))
-    level_fn.launches = 0
+    zero_levels()
     got = c64(varK, varT)
     torch.cuda.synchronize()
     n_levels = sum(1 for lvl in c64.lowered.levels if level_buckets(lvl))
-    if level_fn.launches != n_levels:
-        fail(f"f64-acc slice: kernel launched {level_fn.launches} times, expected {n_levels}")
+    if levels_run() != n_levels:
+        fail(f"f64-acc slice: kernel launched {levels_run()} times, expected {n_levels}")
     if got.dtype != torch.float64 or got.shape != ref.shape or not torch.isfinite(got).all():
         fail(f"f64-acc slice: output {got.dtype} {tuple(got.shape)} or not finite")
     worst = per_root(got, ref)
     print(f"slice: fused f32 storage / f64 accumulation via compile_evaluator (built in "
           f"{time.perf_counter() - t0:.1f} s) vs f64 plain, batch {BATCH}: "
-          f"{level_fn.launches} kernel launches per pass, worst per-root {worst:.3e} "
+          f"{levels_run()} kernel launches per pass, worst per-root {worst:.3e} "
           f"(limit {SLICE_TOL:g})", flush=True)
     if not worst <= SLICE_TOL:
         fail(f"f64-acc slice: per-root scale-relative error {worst:.3e} > {SLICE_TOL}")
@@ -2371,7 +2736,7 @@ def main() -> None:
     low2 = lower(roots2, leafmap2, sum_mode="bucketed")
     vals = np.random.default_rng(2).uniform(0.25, 4.0, (len(leafmap2), 16))
     f64 = make_evaluator(low2, device=dev, dtype=torch.float64, kernel=False)(vals)
-    level_fn.launches = 0
+    zero_levels()
     mixed = make_evaluator(low2, device=dev, dtype=torch.bfloat16,
                            acc_dtype=torch.float32)(vals.astype(np.float32))
     torch.cuda.synchronize()
@@ -2379,9 +2744,9 @@ def main() -> None:
     rel = (mixed.double() - f64).abs() / denom
     med, top = rel.median().item(), rel.max().item()
     print(f"graph: order-2 bucketed bf16 storage / f32 accumulation vs f64, batch 16: "
-          f"{level_fn.launches} kernel launches, median rel {med:.3e} (limit 1e-2), max "
+          f"{levels_run()} kernel launches, median rel {med:.3e} (limit 1e-2), max "
           f"{top:.3e} (limit 0.5)", flush=True)
-    if mixed.dtype != torch.float32 or level_fn.launches == 0 or not (med < 1e-2 and
+    if mixed.dtype != torch.float32 or levels_run() == 0 or not (med < 1e-2 and
                                                                       top < 0.5):
         fail("bf16/f32 graph phase outside tests/test_lowering.py's bounds")
     vals32 = vals.astype(np.float32)
@@ -3012,13 +3377,13 @@ def main() -> None:
         leaves = c.leaf_fn(vk, vt)
         del vk, vt
         torch.cuda.synchronize()
-        level_fn.launches = 0
+        zero_levels()
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
         w = graph_all(leaves)
         e1.record()
         torch.cuda.synchronize()
-        full_ms, n_launch = e0.elapsed_time(e1), level_fn.launches
+        full_ms, n_launch = e0.elapsed_time(e1), levels_run()
         finite = bool(torch.isfinite(w[torch.as_tensor(low.root_slots, device=dev)]).all())
         diff = g4.differing_rows(graph_all, leaves, w, WINDOW)
         n = w.numel()
@@ -3152,8 +3517,15 @@ def main() -> None:
     plan_report = launch_plan_checks(dev, smi, (
         ("order-4 Gamma4 fused", compiled["fused"], para.totalLoopNum, para.totalTauNum),
         ("config 4 fused", fused4, para4_.totalLoopNum, para4_.totalTauNum)))
-    del fused4, para4_
     phase("launch plan")
+
+    # -- 10b. stretches of thin levels as column runs
+    col_report = column_run_checks(dev, smi, column_run_cases(dev, {
+        "order-4 Gamma4 fused": (compiled["fused"], para.totalLoopNum, para.totalTauNum),
+        "config 4 fused": (fused4, para4_.totalLoopNum, para4_.totalTauNum)}))
+    del fused4, para4_
+    torch.cuda.empty_cache()
+    phase("column runs")
 
     # -- 11. the whole pass captured as CUDA graphs: jit=True
     def host_ms(fn, n=JIT_HOST_CALLS):
@@ -3249,12 +3621,13 @@ def main() -> None:
             mem_e = torch.cuda.max_memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             loop = CapturedLoop(c, **kw)
-            level_fn.launches = kernel_fn.launches = 0
+            kernel_fn.launches = 0
+            zero_levels()
             leaf_eval.leaf_eval.launches = 0
             got = loop.run(SEED, 3)
             torch.cuda.synchronize()
             mem_j = torch.cuda.max_memory_allocated()
-            counted = (level_fn.launches, kernel_fn.launches, leaf_launches())
+            counted = (levels_run(), kernel_fn.launches, leaf_launches())
             if counted != (3 * n_levels, 0, 3):
                 fail(f"jit {label} mc, batch {batch}: 3 replays counted {counted} level, "
                      f"bucket and leaf launches, expected {(3 * n_levels, 0, 3)}: a replay "
@@ -3659,7 +4032,7 @@ def main() -> None:
         "gamma4_past_2_31": g4_big,
         "jit": {"paths_captured": sorted(jit_report), "cases": jit_report},
         "jit_sharded": jit_shard_report, "probe_bucket_fusion": fusion["rows"],
-        "launch_plan": plan_report}] + [{
+        "launch_plan": plan_report, "column_runs": col_report}] + [{
             "name": f"probe_{name}", "route": "cuda",
             "source": "feynmandiagram_tpu_torch/csrc/row_probes.cu",
             "replaces": f"benchmarks/probe_mosaic_caps.py:{PROBE_LINE[name]}",
@@ -3697,4 +4070,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--column-runs"]:
+        column_run_main()
+    else:
+        main()

@@ -19,7 +19,8 @@ port's hot path enters while a profiler runs (the JAX package's
               gather-reduce kernel over its n buckets), ``prod{a}``, ``pow{n}``;
               on the card a run of levels launched from one C call, in the
               scope ``levels``, whose launches are given back to their
-              levels in launch order (the evaluator's runs name them)
+              levels in launch order (the launch plan's runs name them),
+              a column run over a stretch of levels to ``gL04-gL298/run``
 - accum     : the sum of the roots over the batch
 - other     : what ran outside every scope
 
@@ -53,10 +54,10 @@ PHASES = ("prng", "leaf", "graph", "accum", "other")
 PHASE_RES = [
     ("prng", re.compile(r"/prng/")),
     ("leaf", re.compile(r"/leaf/")),
-    ("graph", re.compile(r"/(?:gL\d+|levels)/")),
+    ("graph", re.compile(r"/(?:gL\d+(?:-gL\d+)?|levels)/")),
     ("accum", re.compile(r"/accum/")),
 ]
-LEVEL_RE = re.compile(r"/(gL\d+)/(?:([a-z]+[\dx]*)/)?")
+LEVEL_RE = re.compile(r"/(gL\d+(?:-gL\d+)?)/(?:([a-z]+[\dx]*)/)?")
 LEAF_RE = re.compile(r"/(leaf)/")
 TOP_RE = re.compile(r"^(prng|leaf|gL\d+|levels|accum)$")
 RUN_SCOPE = "levels"
@@ -126,9 +127,10 @@ def _scope_paths(events):
 
 
 def _run_labels(launches, enclosing, runs):
-    """Correlation id -> level path (``gL05/fb8``) of each kernel launch
-    made inside a ``levels`` scope: the scopes in time order are the pass's
-    runs in turn, and a run's launches its levels in order."""
+    """Correlation id -> launch path (``gL05/fb8``, a column run's
+    ``gL04-gL298/run``) of each kernel launch made inside a ``levels``
+    scope: the scopes in time order are the pass's runs in turn, and a run's
+    launches its launch paths in order."""
     groups = defaultdict(list)
     for corr, (thread, ts, name) in launches.items():
         spans = enclosing(thread, ts)
@@ -142,7 +144,7 @@ def _run_labels(launches, enclosing, runs):
 
 
 def aggregate(trace_file: str, iters: int, on_device: bool, runs=()):
-    """Phase and level tables of one trace, per pass.  ``runs``: the level
+    """Phase and level tables of one trace, per pass.  ``runs``: the launch
     paths of each run of a pass that the card launches from one C call, in
     pass order."""
     with open(trace_file) as fh:
@@ -253,8 +255,9 @@ def profile(order: int = 4, batch: int = 4096, iters: int = 20, device=None,
         sync()
         traced = time.perf_counter() - t0
     trace_file = sorted(glob.glob(os.path.join(log_dir, "trace_*.json")))[-1]
-    runs = [tuple(f"{lvl.scope}/{lvl.bucket_scope}" for lvl in step)
-            for step in compiled.graph_fn.steps or () if isinstance(step, list)]
+    from ..ops.kernels import LevelRun
+    plan = compiled.graph_fn._plans.get(batch, ()) if compiled.graph_fn.steps else ()
+    runs = [step.paths for step in plan if isinstance(step, LevelRun)]
     out = aggregate(trace_file, iters, device.type == "cuda", runs)
     low = compiled.lowered
     card = None

@@ -38,7 +38,8 @@
 // the card from one launch, about the work a block does per wait, and about
 // making the re-reads meet in L2:
 //
-// - One launch per level.  The level's buckets are packed into one index
+// - One launch per level (a stretch of thin levels is one launch of the
+//   column run, further down).  The level's buckets are packed into one index
 //   pool, one factor pool and a table of records (ops/kernels.py::
 //   pack_level).  A row tile is 8 output rows of one bucket, an item a row
 //   tile by 8 pieces of 32 * V batch columns, V the elements of a 16-byte
@@ -364,6 +365,276 @@ cudaError_t launch(const Launch& p, int storage, int acc, int compensated) {
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// A column run: a stretch of thin levels in one launch.
+//
+// A thin level moves a few MB, less than a launch's fixed cost: its kernel
+// waits for its record, its indices and its rows, one after the other, then
+// drains, and the next launch starts cold.  Every sample column is
+// independent of the others, so a stretch of such levels runs as one
+// launch in which each block owns a slice of `lanes` * V columns and walks
+// the stretch's levels in order, a __syncthreads() between two levels.  A
+// row that a level reads was written before the launch or by the same
+// block, at the same columns, in an earlier level: no block waits for
+// another, nothing needs co-residency, and across the card the blocks form
+// a pipeline rather than a lockstep.
+//
+// Within a level a thread group of `lanes` threads takes a row, the groups
+// stride over the level's rows.  A row is its list of gathers: term a's
+// operands k = 0 .. n_op - 1 in turn, the first flagged in bit 31 of its
+// index and carrying the term's factor.  The first kRunGathers of them sit
+// in the row's record (RunRow) with their factors beside it, the others in
+// the extra pools; a thread loads the record of its next row while the
+// gathers of the current one are in flight, so that a level costs one
+// dependent wait, the rows.  A row's value is that of run_tile, bit for bit:
+// (w[i0] * fac) * w[i1] * ..., terms added in order, plain or Kahan, in A,
+// rounded once to T.  Rows are read with ld.global.cg, through L2: a row
+// written inside the launch must never come through the non-coherent
+// read-only path.
+
+constexpr int kRunGathers = 4;            // gathers held in a row's record
+constexpr int kRunMaxThreads = 512;
+
+// A row of a column run: its row of w, its gathers, where those past the
+// first kRunGathers begin in the extra pools, and the first gathers' row
+// indices, bit 31 set where a gather starts a term (unused ones 0).
+struct alignas(16) RunRow {
+  int32_t dst, n_gathers, rest, pad;
+  int32_t idx[kRunGathers];
+};
+
+template <typename T, int V> __device__ __forceinline__ Pack<T, V> load_cg(const T* p) {
+  Pack<T, V> r;
+  if constexpr (V > 1) {
+    uint4 x;
+    asm volatile("ld.global.cg.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(x.x), "=r"(x.y), "=r"(x.z), "=r"(x.w) : "l"(p) : "memory");
+    memcpy(&r, &x, 16);
+  } else if constexpr (sizeof(T) == 8) {
+    uint64_t x;
+    asm volatile("ld.global.cg.u64 %0, [%1];" : "=l"(x) : "l"(p) : "memory");
+    memcpy(&r, &x, 8);
+  } else if constexpr (sizeof(T) == 4) {
+    uint32_t x;
+    asm volatile("ld.global.cg.u32 %0, [%1];" : "=r"(x) : "l"(p) : "memory");
+    memcpy(&r, &x, 4);
+  } else {
+    unsigned short x;
+    asm volatile("ld.global.cg.u16 %0, [%1];" : "=h"(x) : "l"(p) : "memory");
+    memcpy(&r, &x, 2);
+  }
+  return r;
+}
+
+template <typename A> __device__ __forceinline__ void load_facs(const A* p, A (&f)[kRunGathers]) {
+  if constexpr (sizeof(A) == 4) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    f[0] = x.x, f[1] = x.y, f[2] = x.z, f[3] = x.w;
+  } else {
+    const double2 x = __ldg(reinterpret_cast<const double2*>(p));
+    const double2 y = __ldg(reinterpret_cast<const double2*>(p) + 1);
+    f[0] = x.x, f[1] = x.y, f[2] = y.x, f[3] = y.y;
+  }
+}
+
+// A row's running sum: the term being multiplied and the terms added.
+template <typename A, int V, bool KAHAN> struct RowSum {
+  A term[V] = {}, sum[V] = {}, comp[V] = {};
+  bool open = false, added = false;
+
+  __device__ __forceinline__ void close() {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (!added) {
+        sum[j] = term[j];
+        comp[j] = A(0);
+      } else if (KAHAN) {
+        const A y = term[j] - comp[j];
+        const A t = sum[j] + y;
+        comp[j] = (t - sum[j]) - y;
+        sum[j] = t;
+      } else {
+        sum[j] = sum[j] + term[j];
+      }
+    }
+    added = true;
+  }
+
+  // n (<= kRunGathers) gathers in order: their values, flagged indices and
+  // factors
+  template <typename T>
+  __device__ __forceinline__ void take(const Pack<T, V> (&v)[kRunGathers],
+                                       const int32_t (&ix)[kRunGathers],
+                                       const A (&f)[kRunGathers], int n) {
+#pragma unroll
+    for (int g = 0; g < kRunGathers; ++g) {
+      if (g < n) {
+        const bool starts = ix[g] < 0;
+        if (starts && open) close();
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const A x = widen<A>(v[g].x[j]);
+          term[j] = starts ? mul_rn(x, f[g]) : mul_rn(term[j], x);
+        }
+        open = true;
+      }
+    }
+  }
+};
+
+// up to kRunGathers of a row's extra gathers, from `at` on, where m > 0
+template <typename A>
+__device__ __forceinline__ void load_extra(const int32_t* __restrict__ extra_idx,
+                                           const A* __restrict__ extra_fac, int at, int m,
+                                           int32_t (&ix)[kRunGathers], A (&f)[kRunGathers]) {
+#pragma unroll
+  for (int g = 0; g < kRunGathers; ++g) {
+    ix[g] = g < m ? __ldg(extra_idx + at + g) : 0;
+    f[g] = g < m ? __ldg(extra_fac + at + g) : A(0);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void gather(const T* wcol, int64_t batch,
+                                       const int32_t (&ix)[kRunGathers], int n,
+                                       Pack<T, V> (&v)[kRunGathers]) {
+#pragma unroll
+  for (int g = 0; g < kRunGathers; ++g) {
+    if (g < n) v[g] = load_cg<T, V>(wcol + static_cast<int64_t>(ix[g] & 0x7fffffff) * batch);
+  }
+}
+
+// level_rows[l] .. level_rows[l + 1] are level l's rows of `rows`; a block
+// of `blockDim.x` threads owns the columns blockIdx.x * lanes * V ..
+// + lanes * V, lanes = 1 << lanes_log2 threads a row.
+template <typename T, typename A, int V, bool KAHAN>
+__global__ void __launch_bounds__(kRunMaxThreads)
+column_run_gather_reduce_kernel(T* w, const int32_t* __restrict__ level_rows,
+                                const RunRow* __restrict__ rows, const A* __restrict__ row_fac,
+                                const int32_t* __restrict__ extra_idx,
+                                const A* __restrict__ extra_fac, int n_levels, int lanes_log2,
+                                int64_t batch) {
+  const int groups = blockDim.x >> lanes_log2;
+  const int group = threadIdx.x >> lanes_log2;
+  const int64_t col =
+      ((static_cast<int64_t>(blockIdx.x) << lanes_log2) + (threadIdx.x & ((1 << lanes_log2) - 1))) *
+      V;
+  const bool active = col < batch;   // V > 1 only where batch is a multiple of V
+  T* const wcol = w + col;
+  const int4* const rec = reinterpret_cast<const int4*>(rows);
+
+  // the record of the thread's next row, loaded ahead
+  int4 head = make_int4(0, 0, 0, 0), ids = head;
+  A fac[kRunGathers];
+  bool ready = false;
+  auto fetch = [&](int r) {
+    head = __ldg(rec + 2 * r);
+    ids = __ldg(rec + 2 * r + 1);
+    load_facs<A>(row_fac + static_cast<int64_t>(kRunGathers) * r, fac);
+    ready = true;
+  };
+
+  int r_begin = __ldg(level_rows);
+  for (int l = 0; l < n_levels; ++l) {
+    const int r_end = __ldg(level_rows + l + 1);
+    const int r_after = l + 1 < n_levels ? __ldg(level_rows + l + 2) : r_end;
+    if (active) {
+      for (int r = r_begin + group; r < r_end; r += groups) {
+        if (!ready) fetch(r);
+        const int dst = head.x, n = head.y, rest = head.z;
+        const int32_t ix[kRunGathers] = {ids.x, ids.y, ids.z, ids.w};
+        A f[kRunGathers];
+#pragma unroll
+        for (int g = 0; g < kRunGathers; ++g) f[g] = fac[g];
+        Pack<T, V> v[kRunGathers];
+        gather<T, V>(wcol, batch, ix, n, v);
+        // the next row's record: this level's next, else the next level's first
+        ready = false;
+        if (r + groups < r_end) {
+          fetch(r + groups);
+        } else if (r_end + group < r_after) {
+          fetch(r_end + group);
+        }
+        // the indices of the first extra gathers, while the first are in flight
+        int32_t jx[kRunGathers];
+        A jf[kRunGathers];
+        load_extra<A>(extra_idx, extra_fac, rest, n - kRunGathers, jx, jf);
+        RowSum<A, V, KAHAN> s;
+        s.template take<T>(v, ix, f, n);
+        for (int g0 = kRunGathers; g0 < n; g0 += kRunGathers) {
+          const int m = n - g0 < kRunGathers ? n - g0 : kRunGathers;
+          gather<T, V>(wcol, batch, jx, m, v);
+          int32_t kx[kRunGathers];
+          A kf[kRunGathers];
+#pragma unroll
+          for (int g = 0; g < kRunGathers; ++g) kx[g] = jx[g], kf[g] = jf[g];
+          load_extra<A>(extra_idx, extra_fac, rest + g0, n - g0 - kRunGathers, jx, jf);
+          s.template take<T>(v, kx, kf, m);
+        }
+        s.close();
+        Pack<T, V> out;
+#pragma unroll
+        for (int j = 0; j < V; ++j) narrow_to(&out.x[j], s.sum[j]);
+        store_pack<T, V>(wcol + static_cast<int64_t>(dst) * batch, out);
+      }
+      if (!ready && r_end + group < r_after) fetch(r_end + group);
+    }
+    r_begin = r_end;
+    __syncthreads();   // the level's rows are written before the next one reads them
+  }
+}
+
+struct RunLaunch {
+  void* w;
+  const void* level_rows;
+  const void* rows;
+  const void* row_fac;
+  const void* extra_idx;
+  const void* extra_fac;
+  int n_levels;
+  int lanes_log2;
+  int threads;
+  int64_t batch;
+  cudaStream_t stream;
+};
+
+template <typename T, typename A, int V, bool KAHAN> cudaError_t launch_run_v(const RunLaunch& p) {
+  const int64_t slice = (static_cast<int64_t>(1) << p.lanes_log2) * V;
+  const int64_t blocks = (p.batch + slice - 1) / slice;
+  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+  column_run_gather_reduce_kernel<T, A, V, KAHAN>
+      <<<static_cast<unsigned>(blocks), p.threads, 0, p.stream>>>(
+          static_cast<T*>(p.w), static_cast<const int32_t*>(p.level_rows),
+          static_cast<const RunRow*>(p.rows), static_cast<const A*>(p.row_fac),
+          static_cast<const int32_t*>(p.extra_idx), static_cast<const A*>(p.extra_fac),
+          p.n_levels, p.lanes_log2, p.batch);
+  return cudaGetLastError();
+}
+
+template <typename T, typename A> cudaError_t launch_run_ta(const RunLaunch& p, int compensated) {
+  constexpr int kVec = 16 / sizeof(T);
+  const bool aligned = reinterpret_cast<uintptr_t>(p.w) % 16 == 0 &&
+                       (p.batch * static_cast<int64_t>(sizeof(T))) % 16 == 0;
+  if (aligned) {
+    return compensated ? launch_run_v<T, A, kVec, true>(p) : launch_run_v<T, A, kVec, false>(p);
+  }
+  return compensated ? launch_run_v<T, A, 1, true>(p) : launch_run_v<T, A, 1, false>(p);
+}
+
+cudaError_t launch_run(const RunLaunch& p, int storage, int acc, int compensated) {
+  if (p.n_levels < 1 || p.batch < 1 || p.lanes_log2 < 0 || p.lanes_log2 > 5 ||
+      p.threads < 32 || p.threads > kRunMaxThreads || p.threads % 32 != 0 ||
+      p.threads >> p.lanes_log2 < 1 || p.level_rows == nullptr || p.rows == nullptr ||
+      p.row_fac == nullptr || p.extra_idx == nullptr || p.extra_fac == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  if (storage == kF32 && acc == kF32) return launch_run_ta<float, float>(p, compensated);
+  if (storage == kF64 && acc == kF64) return launch_run_ta<double, double>(p, compensated);
+  if (storage == kF32 && acc == kF64) return launch_run_ta<float, double>(p, compensated);
+  if (storage == kBF16 && acc == kF32) return launch_run_ta<__nv_bfloat16, float>(p, compensated);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Both return the cudaError_t of the launch (0 on success).  storage and acc
@@ -383,22 +654,36 @@ extern "C" int fd_level_gather_reduce(void* w, const void* src, const void* idx_
   return static_cast<int>(launch(p, storage, acc, compensated));
 }
 
-// A run of levels, one launch each, in order, on one stream: row i of the
-// host table, [n_levels, 5] int64, is level i's (idx_pool, fac_pool, tiles,
-// n_records, group_cols), and its launch is fd_level_gather_reduce's with
-// src = w.  The first failed launch stops the run: its cudaError_t is
-// returned and its row written to *failed.
-extern "C" int fd_levels_gather_reduce(void* w, const long long* table, int n_levels,
+// A run of levels, in order, on one stream: row i of the host table,
+// [n_launches, 8] int64, is one launch.  A row whose field 5 is 0 launches
+// one level, fd_level_gather_reduce's launch with src = w, from (idx_pool,
+// fac_pool, tiles, n_records, group_cols, 0, 0, 0).  A row whose field 5 is
+// n >= 1 launches a column run of n levels from (rows, row_fac, level_rows,
+// n_rows, lanes_log2 | threads << 8, n, extra_idx, extra_fac).  The first
+// failed launch stops the run: its cudaError_t is returned and its row
+// written to *failed.
+extern "C" int fd_levels_gather_reduce(void* w, const long long* table, int n_launches,
                                        long long batch, int storage, int acc, int compensated,
                                        void* stream, int* failed) {
-  for (int i = 0; i < n_levels; ++i) {
-    const long long* row = table + 5 * static_cast<int64_t>(i);
-    const Launch p{w, w, reinterpret_cast<const void*>(row[0]),
-                   reinterpret_cast<const void*>(row[1]), reinterpret_cast<const void*>(row[2]),
-                   Tile{}, static_cast<int>(row[3]), batch, row[4],
-                   static_cast<cudaStream_t>(stream)};
-    const cudaError_t err = p.tiles == nullptr ? cudaErrorInvalidValue
-                                               : launch(p, storage, acc, compensated);
+  for (int i = 0; i < n_launches; ++i) {
+    const long long* row = table + 8 * static_cast<int64_t>(i);
+    cudaError_t err;
+    if (row[5] == 0) {
+      const Launch p{w, w, reinterpret_cast<const void*>(row[0]),
+                     reinterpret_cast<const void*>(row[1]), reinterpret_cast<const void*>(row[2]),
+                     Tile{}, static_cast<int>(row[3]), batch, row[4],
+                     static_cast<cudaStream_t>(stream)};
+      err = p.tiles == nullptr ? cudaErrorInvalidValue : launch(p, storage, acc, compensated);
+    } else {
+      const RunLaunch p{w, reinterpret_cast<const void*>(row[2]),
+                        reinterpret_cast<const void*>(row[0]),
+                        reinterpret_cast<const void*>(row[1]),
+                        reinterpret_cast<const void*>(row[6]),
+                        reinterpret_cast<const void*>(row[7]), static_cast<int>(row[5]),
+                        static_cast<int>(row[4] & 0xff), static_cast<int>(row[4] >> 8), batch,
+                        static_cast<cudaStream_t>(stream)};
+      err = launch_run(p, storage, acc, compensated);
+    }
     if (err != cudaSuccess) {
       *failed = i;
       return static_cast<int>(err);

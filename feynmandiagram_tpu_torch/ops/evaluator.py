@@ -27,8 +27,12 @@ only launch (no CSR sum, no plain product or power), and each run is one C
 call that issues its levels' launches in order (``kernels.levels_gather_reduce``),
 from a host table of their records, column groups and tables prepared for
 that batch, with none of the per-launch checks, which the build and the plan
-made once.  A level outside every run runs as below.  Each launch is the one
-``level_gather_reduce`` would make, so the values are the same bit for bit.
+made once.  Within a run, each stretch of two or more consecutive levels
+that are thin at that batch (``kernels.is_thin``: few bytes, short rows) is
+one launch of the column-run kernel, whose blocks each carry a slice of the
+batch's columns through every level of the stretch.  A level outside every
+run runs as below.  Each launch computes what ``level_gather_reduce`` would,
+in the same order and arithmetic, so the values are the same bit for bit.
 
 Each level runs in a profiler scope ``gL{NN}``, and within it the CSR sum
 in ``csr``, the level's one launch in ``fb{n}`` (``sb{n}`` when it holds
@@ -39,7 +43,8 @@ is entered only while a profiler runs or a capture is open
 (``utils.profiling.scope``); in a capture the scopes name the launches of
 the graph's manifest (``gL05/fb8``).  A run's C call runs in the scope
 ``levels``, and its launches join a manifest under their levels' paths, as
-those of the level-by-level path do.
+those of the level-by-level path do, a column run under its stretch's
+(``gL04-gL298/run``).
 
 JAX's evaluator was functional (``dynamic_update_slice`` on an immutable
 buffer); this one writes each plan's rows of ``w`` in place.  That is safe

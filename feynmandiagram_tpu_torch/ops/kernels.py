@@ -20,7 +20,11 @@ instead of ``w`` (the halo of a graph-sharded level,
 ``bucket_gather_reduce`` is the one-bucket call of the same kernel.
 ``levels_gather_reduce`` launches a run of levels from one C call, from a
 ``LevelRun`` that ``plan_run`` prepared once for a batch size: the launches
-of ``level_gather_reduce`` on each, in order, with none of its checks.  On a
+of ``level_gather_reduce`` on each, in order, with none of its checks,
+except that each *stretch* of two or more consecutive thin levels is one
+launch of a second kernel, the *column run* (``pack_column_run``), whose
+blocks each carry a slice of the batch's columns through every level of the
+stretch; ``column_run_gather_reduce_plain`` is its plain version.  On a
 CUDA tensor either wrapper launches the hand-written CUDA kernel in
 ``csrc/bucket_gather_reduce.cu``; on a CPU tensor it runs its plain PyTorch
 version.  Nothing falls back: a CUDA build or launch failure raises.
@@ -30,7 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -75,6 +79,22 @@ ITEM_PIECES = 8
 RECORD_WIDTHS = (4, 2, 1)
 TARGET_BLOCKS = 528
 L2_GROUP_BYTES = 24 * 2 ** 20
+# The column run (``pack_column_run``).  A level is thin where its distinct
+# rows read and rows written, times the batch and the element size, come to
+# under THIN_BYTES, and none of its rows gathers more than RUN_MAX_GATHERS
+# rows: it then takes about a launch's fixed cost, whatever its size, and a
+# block of a column run, which takes a row's gathers one after the other,
+# waits for no long chain.  A stretch of two or more thin levels of a run is
+# one launch of blocks of RUN_THREADS threads, each block owning the same
+# columns of every row, 16 bytes a thread, as many as leave about RUN_BLOCKS
+# blocks across the batch (``run_lanes``); a row's record holds its first
+# RUN_GATHERS gathers.  THIN_BYTES, RUN_MAX_GATHERS, RUN_BLOCKS and
+# RUN_THREADS were set by a sweep on the card (PERF.md §6 has the numbers).
+THIN_BYTES = 32 * 2 ** 20
+RUN_MAX_GATHERS = 8
+RUN_BLOCKS = 256
+RUN_THREADS = 256
+RUN_GATHERS = 4
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -292,7 +312,10 @@ class LevelTables:
     version reads the buckets back through it.  ``row_end`` is one past the
     last row of ``w`` that the level writes, ``max_index`` the largest row
     that it reads, ``rows_touched`` the rows it reads (distinct) and
-    writes."""
+    writes; ``column`` the level's rows as a column run reads them
+    (``ColumnRows``), and ``column_runs`` the column runs packed so far
+    that start at this level (``column_run_of``), which live as long as the
+    level's tables, as a captured graph that launches them needs."""
     idx: torch.Tensor
     fac: torch.Tensor
     records: Dict[int, torch.Tensor]
@@ -300,6 +323,8 @@ class LevelTables:
     row_end: int
     max_index: int
     rows_touched: int
+    column: "ColumnRows"
+    column_runs: Dict[tuple, "ColumnRun"] = field(default_factory=dict)
 
     def records_for(self, w: torch.Tensor,
                     geometry: Optional[Tuple[int, int]] = None) -> torch.Tensor:
@@ -327,6 +352,54 @@ def _tile_records(desc: np.ndarray, widest: int) -> np.ndarray:
         rec[:, 7] = (np.arange(len(c0)) % (ITEM_PIECES // width) * width) | (width << 16)
         out.append(rec)
     return np.concatenate(out)
+
+
+@dataclass
+class ColumnRows:
+    """A level's output rows as a column run reads them, on the host, in the
+    order of the level's row tiles.  A row is its list of gathers, term
+    ``a``'s operands ``k = 0 .. n_op - 1`` in turn, each the row of ``w`` it
+    reads, bit 31 set on a term's first operand, which carries the term's
+    factor.  ``rows`` is int32 ``[n, 8]``: the row of ``w`` written, its
+    gathers, where those past the first ``RUN_GATHERS`` begin in the extra
+    arrays, 0, then its first ``RUN_GATHERS`` gathers (0 where it has
+    fewer); ``fac_at`` int64 ``[n, RUN_GATHERS]`` the positions in the
+    level's factor pool of those gathers' factors (a term's, on each of its
+    operands); ``extra_idx`` (int32) and ``extra_fac_at`` (int64) the same
+    for the gathers past the first ``RUN_GATHERS``, row after row."""
+    rows: np.ndarray
+    fac_at: np.ndarray
+    extra_idx: np.ndarray
+    extra_fac_at: np.ndarray
+
+
+def _column_rows(desc: np.ndarray, idx_pool: np.ndarray) -> ColumnRows:
+    rows, fac_at, extra_idx, extra_fac_at, n_extra = [], [], [], [], 0
+    for start, count, arity, n_op, i_off, f_off, _ in desc[np.argsort(desc[:, 6])].tolist():
+        n_g = n_op * arity
+        c = np.arange(count)[:, None]
+        a, k = np.divmod(np.arange(n_g), n_op)         # gather a * n_op + k
+        g = idx_pool[i_off + (k * arity + a) * count + c].astype(np.uint32)
+        g |= (k == 0).astype(np.uint32) << 31
+        g = g.view(np.int32)
+        f = f_off + a * count + c
+        head = min(n_g, RUN_GATHERS)
+        rec = np.zeros((count, 8), np.int32)
+        rec[:, 0] = start + c[:, 0]
+        rec[:, 1] = n_g
+        rec[:, 4:4 + head] = g[:, :head]
+        at = np.zeros((count, RUN_GATHERS), np.int64)
+        at[:, :head] = f[:, :head]
+        if n_g > RUN_GATHERS:
+            rec[:, 2] = n_extra + (n_g - RUN_GATHERS) * c[:, 0]
+            extra_idx.append(g[:, RUN_GATHERS:].reshape(-1))
+            extra_fac_at.append(f[:, RUN_GATHERS:].reshape(-1))
+            n_extra += count * (n_g - RUN_GATHERS)
+        rows.append(rec)
+        fac_at.append(at)
+    return ColumnRows(np.concatenate(rows), np.concatenate(fac_at),
+                      np.concatenate(extra_idx) if extra_idx else np.zeros(0, np.int32),
+                      np.concatenate(extra_fac_at) if extra_fac_at else np.zeros(0, np.int64))
 
 
 def pack_level(buckets: Sequence[Bucket], device, fac_dtype: torch.dtype) -> LevelTables:
@@ -371,7 +444,8 @@ def pack_level(buckets: Sequence[Bucket], device, fac_dtype: torch.dtype) -> Lev
         records={widest: torch.as_tensor(_tile_records(desc, widest), device=device)
                  for widest in RECORD_WIDTHS},
         desc=desc, row_end=row_end, max_index=int(idx_pool.max()),
-        rows_touched=len(np.unique(idx_pool)) + int(desc[:, 1].sum()))
+        rows_touched=len(np.unique(idx_pool)) + int(desc[:, 1].sum()),
+        column=_column_rows(desc, idx_pool))
 
 
 def unpack_level(tables: LevelTables) -> List[Tuple[torch.Tensor, torch.Tensor, int]]:
@@ -491,40 +565,240 @@ def level_row(w: torch.Tensor, tables: LevelTables,
 
 
 # ---------------------------------------------------------------------------
+# a stretch of thin levels in one launch: the column run
+
+
+@dataclass
+class ColumnRun:
+    """A stretch of consecutive levels packed for one column-run launch
+    (``pack_column_run``): on the device, ``level_rows`` (int32, level
+    ``l``'s rows are ``level_rows[l] .. level_rows[l + 1]``), ``rows`` (int32
+    ``[n, 8]``, ``ColumnRows.rows`` laid end to end, the extra offsets
+    shifted), ``row_fac`` (``[n, RUN_GATHERS]`` in the accumulation type),
+    ``extra_idx`` and ``extra_fac`` (one element at least); ``host_rows`` and
+    ``host_extra_idx`` are the host's copies of ``rows`` and ``extra_idx``."""
+    level_rows: torch.Tensor
+    rows: torch.Tensor
+    row_fac: torch.Tensor
+    extra_idx: torch.Tensor
+    extra_fac: torch.Tensor
+    host_rows: np.ndarray
+    host_extra_idx: np.ndarray
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.level_rows) - 1
+
+
+def pack_column_run(levels: Sequence[LevelTables]) -> ColumnRun:
+    """Pack the levels ``levels``, consecutive levels of a pass, for one
+    column-run launch, on their tables' device: each level's
+    ``ColumnRows`` in turn, and the factors copied out of its factor pool."""
+    device = levels[0].fac.device
+    rows, extra_idx, extra_fac, n_extra = [], [], [], 0
+    for t in levels:
+        r = t.column.rows.copy()
+        r[r[:, 1] > RUN_GATHERS, 2] += n_extra
+        rows.append(r)
+        extra_idx.append(t.column.extra_idx)
+        n_extra += len(t.column.extra_idx)
+    counts = [len(r) for r in rows]
+    rows, extra_idx = np.concatenate(rows), np.concatenate(extra_idx + [np.zeros(1, np.int32)])
+
+    def facs(at) -> torch.Tensor:
+        return torch.cat([t.fac[torch.as_tensor(getattr(t.column, at), device=device).view(-1)]
+                          for t in levels])
+
+    return ColumnRun(
+        level_rows=torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
+                                   device=device),
+        rows=torch.as_tensor(rows, device=device), row_fac=facs("fac_at").view(-1, RUN_GATHERS),
+        extra_idx=torch.as_tensor(extra_idx, device=device),
+        extra_fac=torch.cat([facs("extra_fac_at"), levels[0].fac[:1]]),
+        host_rows=rows, host_extra_idx=extra_idx)
+
+
+def column_run_of(levels: Sequence[LevelTables]) -> ColumnRun:
+    """The column run of ``levels``, packed once (``pack_column_run``) and
+    kept with the first level's tables."""
+    key = tuple(id(t) for t in levels)
+    run = levels[0].column_runs.get(key)
+    if run is None:
+        run = levels[0].column_runs[key] = pack_column_run(levels)
+    return run
+
+
+def column_run_gather_reduce_plain(w: torch.Tensor, run: ColumnRun, *,
+                                   compensated: bool = False,
+                                   acc_dtype: Optional[torch.dtype] = None) -> None:
+    """Plain PyTorch version of a column run, on any device, in place on
+    ``w``: level after level, each row's gathers taken in order as the
+    kernel takes them, a term's first operand times its factor, then times
+    each further operand, the terms added in order (Kahan-compensated if
+    asked) in ``acc_dtype or w.dtype``, rounded once to ``w.dtype``."""
+    a = acc_dtype or w.dtype
+    dev = w.device
+    n = len(run.host_rows)
+    all_fac = torch.cat([run.row_fac.reshape(-1), run.extra_fac]).to(dev)
+    bounds = run.level_rows.tolist()
+    for r0, r1 in zip(bounds, bounds[1:]):
+        rec = run.host_rows[r0:r1]
+        n_g = rec[:, 1]
+        width = int(n_g.max())
+        gi = np.zeros((r1 - r0, width), np.int32)
+        fi = np.zeros((r1 - r0, width), np.int64)
+        head = min(width, RUN_GATHERS)
+        gi[:, :head] = rec[:, 4:4 + head]
+        fi[:, :head] = RUN_GATHERS * np.arange(r0, r1)[:, None] + np.arange(head)
+        for j in range(RUN_GATHERS, width):
+            more = n_g > j
+            at = rec[more, 2] + j - RUN_GATHERS
+            gi[more, j] = run.host_extra_idx[at]
+            fi[more, j] = RUN_GATHERS * n + at
+        valid = torch.as_tensor(np.arange(width) < n_g[:, None], device=dev)
+        starts = torch.as_tensor(gi < 0, device=dev)
+        rows_read = torch.as_tensor(gi.astype(np.int64) & 0x7fffffff, device=dev)
+        fac = all_fac[torch.as_tensor(fi, device=dev)]
+        shape = (r1 - r0, w.shape[1])
+        term = torch.zeros(shape, dtype=a, device=dev)
+        total = torch.zeros_like(term)
+        comp = torch.zeros_like(term)
+        open_ = torch.zeros(r1 - r0, dtype=torch.bool, device=dev)
+        added = torch.zeros_like(open_)
+
+        def close(mask):
+            nonlocal total, comp, added
+            first, later = (mask & ~added)[:, None], (mask & added)[:, None]
+            if compensated:
+                y = term - comp
+                t = total + y
+                step, c = t, (t - total) - y
+            else:
+                step, c = total + term, comp
+            total = torch.where(first, term, torch.where(later, step, total))
+            comp = torch.where(first, torch.zeros_like(comp), torch.where(later, c, comp))
+            added = added | mask
+
+        for j in range(width):
+            v = w[rows_read[:, j]].to(a)
+            st = starts[:, j] & valid[:, j]
+            close(st & open_)
+            new = torch.where(st[:, None], v * fac[:, j, None], term * v)
+            term = torch.where(valid[:, j, None], new, term)
+            open_ = open_ | valid[:, j]
+        close(open_)
+        w[torch.as_tensor(rec[:, 0].astype(np.int64), device=dev)] = total.to(w.dtype)
+
+
+class RunKernel:
+    """A kernel that only a run of levels launches (``levels_gather_reduce``),
+    as a launch wrapper for ``utils.profiling``: its ``symbol`` as the
+    device's records name it, its ``launches``, and the ``levels`` of a
+    pass that they computed, replays of a captured one included."""
+
+    def __init__(self, symbol: str):
+        self.symbol = symbol
+        self.launches = 0
+        self.levels = 0
+
+
+column_run_gather_reduce = RunKernel("column_run_gather_reduce_kernel")
+
+
+def is_thin(tables: LevelTables, batch: int, element_size: int) -> bool:
+    """Whether a level is thin at this batch: its distinct rows read and
+    rows written, times ``batch`` and ``element_size``, under
+    ``THIN_BYTES``, and none of its rows over ``RUN_MAX_GATHERS`` gathers."""
+    return (tables.rows_touched * batch * element_size < THIN_BYTES
+            and int(tables.column.rows[:, 1].max()) <= RUN_MAX_GATHERS)
+
+
+def stretches(thin: Sequence[bool]) -> List[Tuple[int, int]]:
+    """The stretches of a run whose levels are ``thin`` or not: each
+    ``(first, end)`` of two or more consecutive thin levels, as long as it
+    goes."""
+    out, i = [], 0
+    while i < len(thin):
+        j = i
+        while j < len(thin) and thin[j]:
+            j += 1
+        if j - i >= 2:
+            out.append((i, j))
+        i = max(j, i + 1)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # a run of levels from one C call
 
-RUN_FIELDS = ("idx", "fac", "tiles", "n_records", "group_cols")
+RUN_FIELDS = ("idx", "fac", "tiles", "n_records", "group_cols", "levels", "extra_idx",
+              "extra_fac")
 
 
 @dataclass
 class LevelRun:
     """The launches of a run of levels at one batch size, prepared once
-    (``plan_run``): ``table`` has a row of ``RUN_FIELDS`` a level, in level
-    order (``level_row``), on the host; ``paths`` the levels' scope paths
-    (``gL05/fb8``), which name the launches in a capture's manifest and in
-    errors; ``codes`` the (storage, accumulation) type codes and
-    ``compensated`` Kahan summation.  The tables the rows point into belong
-    to the caller, who keeps them alive."""
+    (``plan_run``): ``table`` has a row of ``RUN_FIELDS`` a launch, in level
+    order, on the host: a level's launch (``level_row``, then ``levels`` 0)
+    or a column run's over ``levels`` levels (``column_run_row``);
+    ``paths`` the launches' scope paths (``gL05/fb8`` for a level,
+    ``gL04-gL298/run`` for a column run), which name them in a capture's
+    manifest and in errors; ``codes`` the (storage, accumulation) type codes
+    and ``compensated`` Kahan summation; ``column_runs`` the column runs'
+    tables.  The levels' tables that the rows point into, the column runs'
+    with them (``column_run_of``), belong to the caller, who keeps them
+    alive."""
     batch: int
     table: np.ndarray
     paths: Tuple[str, ...]
     codes: Tuple[int, int]
     compensated: bool
+    column_runs: Tuple[ColumnRun, ...] = ()
 
     def __post_init__(self):
         self._failed = ctypes.c_int(-1)
         self._args = (self.table.ctypes.data, len(self.paths), self.batch, *self.codes,
                       int(self.compensated))
         self._failed_at = ctypes.addressof(self._failed)
+        covered = self.table[:, 5].tolist() if len(self.table) else []
+        self.launches = tuple((column_run_gather_reduce if n else level_gather_reduce, path,
+                               max(n, 1)) for n, path in zip(covered, self.paths))
+        level_launches = sum(1 for n in covered if n == 0)
+        self.counts = ((levels_gather_reduce, "launches", level_launches),
+                       (level_gather_reduce, "launches", level_launches),
+                       (column_run_gather_reduce, "launches", sum(1 for n in covered if n)),
+                       (column_run_gather_reduce, "levels", sum(covered)))
+
+
+def run_lanes(batch: int, element_size: int) -> int:
+    """Threads a row of a column run takes in each block, one 16-byte load
+    each (one element where the rows are not 16-byte aligned): the power of
+    two, 1 to 32, that leaves RUN_BLOCKS blocks or a few more across
+    ``batch``."""
+    vec = 16 // element_size if batch * element_size % 16 == 0 else 1
+    return min(32, 1 << max(0, (batch // (vec * RUN_BLOCKS)).bit_length() - 1))
+
+
+def column_run_row(run: ColumnRun, lanes: int) -> Tuple[int, ...]:
+    """A column run's row of ``LevelRun.table``: its tables' addresses, its
+    rows, the launch's shape (``lanes_log2 | RUN_THREADS << 8``: ``lanes``
+    threads a row, a power of two up to 32 (``run_lanes``), in blocks of
+    ``RUN_THREADS``) and its levels."""
+    return (run.rows.data_ptr(), run.row_fac.data_ptr(), run.level_rows.data_ptr(),
+            len(run.host_rows), (lanes.bit_length() - 1) | RUN_THREADS << 8, run.n_levels,
+            run.extra_idx.data_ptr(), run.extra_fac.data_ptr())
 
 
 def plan_run(w: torch.Tensor, levels: Sequence[LevelTables], paths: Sequence[str], *,
              compensated: bool = False, acc_dtype: Optional[torch.dtype] = None) -> LevelRun:
     """Check once what ``level_gather_reduce`` checks at every launch, for
     the levels ``levels`` in order on buffers of ``w``'s shape, dtype and
-    device, and pack their launches into a ``LevelRun``.  ``w`` only lends
-    its shape, dtype and device (a tensor expanded from one element does):
-    that each buffer is contiguous is the caller's to check."""
+    device, and pack their launches into a ``LevelRun``: each stretch of
+    two or more consecutive levels that are thin at ``w``'s batch
+    (``is_thin``, ``stretches``) one column run (``column_run_of``), each
+    other level its own launch.  ``w`` only lends its shape, dtype and
+    device (a tensor expanded from one element does): that each buffer is
+    contiguous is the caller's to check."""
     if w.dim() != 2 or w.dtype not in STORAGE_DTYPES:
         raise ValueError(f"w must be a 2-D tensor of {STORAGE_DTYPES}, got {w.dtype} "
                          f"{tuple(w.shape)}")
@@ -535,29 +809,47 @@ def plan_run(w: torch.Tensor, levels: Sequence[LevelTables], paths: Sequence[str
         check_tables(tables, w.shape[0], w.device)
         if tables.fac.dtype != levels[0].fac.dtype:
             raise ValueError("the levels of a run take one factor dtype")
-    return LevelRun(w.shape[1], np.array([level_row(w, t) for t in levels], np.int64),
-                    tuple(paths), codes, compensated)
+    lanes = run_lanes(w.shape[1], w.element_size())
+    cuts = dict(stretches([is_thin(t, w.shape[1], w.element_size()) for t in levels]))
+    rows, names, runs, i = [], [], [], 0
+    while i < len(levels):
+        if i in cuts:
+            end = cuts[i]
+            runs.append(column_run_of(levels[i:end]))
+            rows.append(column_run_row(runs[-1], lanes))
+            names.append(f"{paths[i].split('/')[0]}-{paths[end - 1].split('/')[0]}/run")
+            i = end
+        else:
+            rows.append(level_row(w, levels[i]) + (0, 0, 0))
+            names.append(paths[i])
+            i += 1
+    return LevelRun(w.shape[1], np.array(rows, np.int64).reshape(-1, len(RUN_FIELDS)),
+                    tuple(names), codes, compensated, tuple(runs))
 
 
 def levels_gather_reduce(w: torch.Tensor, run: LevelRun, stream: int) -> None:
     """Launch every level of ``run`` on ``w`` in place, in order, on
-    ``stream`` (a raw ``cudaStream_t``), from one C call: each launch is
-    the one ``level_gather_reduce(w, tables)`` makes, with none of its
-    checks.  ``w`` must be a contiguous CUDA buffer of the shape, dtype and
-    device that ``run`` was planned for, on the current device.  The C call
-    runs in the profiler scope ``levels``; a failed launch raises, naming
-    its level.  Outside a capture ``levels_gather_reduce.calls`` counts the
-    calls and ``levels_gather_reduce.launches`` the level launches they
-    issued, which ``level_gather_reduce.launches`` counts too; in a capture
-    each launch joins the manifest under its level's path
-    (``utils.profiling.launched_run``)."""
+    ``stream`` (a raw ``cudaStream_t``), from one C call: each level's
+    launch the one ``level_gather_reduce(w, tables)`` makes, with none of
+    its checks, each column run one launch of its stretch.  ``w`` must be a
+    contiguous CUDA buffer of the shape, dtype and device that ``run`` was
+    planned for, on the current device.  The C call runs in the profiler
+    scope ``levels``; a failed launch raises, naming its level or stretch.
+    Outside a capture ``levels_gather_reduce.calls`` counts the calls,
+    ``levels_gather_reduce.launches`` the level launches they issued (which
+    ``level_gather_reduce.launches`` counts too),
+    ``column_run_gather_reduce.launches`` their column runs and
+    ``column_run_gather_reduce.levels`` the levels those computed; in a
+    capture each launch joins the manifest under its path
+    (``utils.profiling.launched_run``), and each replay counts it in its
+    kernel's counters."""
     lib = build.load("bucket_gather_reduce", _bind)
     with scope("levels"):
         err = lib.fd_levels_gather_reduce(w.data_ptr(), *run._args, stream, run._failed_at)
     if err != 0:
         raise RuntimeError(f"level_gather_reduce launch failed at level "
                            f"{run.paths[run._failed.value]}: cudaError {err}")
-    launched_run(levels_gather_reduce, level_gather_reduce, run.paths)
+    launched_run(levels_gather_reduce, run.launches, run.counts)
 
 
 levels_gather_reduce.calls = 0

@@ -14,7 +14,8 @@ What the JAX package has no counterpart of, since XLA runs its programs:
   ``capturing`` is open, each launch wrapper's ``launched(kernel)`` keeps
   the kernel's symbol and the path of the scopes it ran in (``leaf``,
   ``gL05/fb8``) in the graph's ``Manifest``, in launch order (a run of
-  levels launched from one C call, ``launched_run``, one entry a level);
+  levels launched from one C call, ``launched_run``, one entry a launch: a
+  level's, or a column run's over a stretch of levels, ``gL04-gL298/run``);
   ``replayed(manifest, n)`` then adds ``n`` replays' launches to the
   wrappers' ``launches`` counters, which so count every launch the device
   runs, eager or replayed.  ``manifest(name)`` returns a live graph's
@@ -90,10 +91,13 @@ def scope(name: str):
 class Launch:
     """One kernel launch a captured graph holds: the kernel's ``symbol`` as
     the device's records name it, the ``path`` of the scopes it ran in,
-    outermost first, and the launch wrapper (``kernel``) that counts it."""
+    outermost first, the launch wrapper (``kernel``) that counts it, and
+    the ``levels`` of a pass that it computes (more than one for a column
+    run)."""
     symbol: str
     path: str
     kernel: Callable
+    levels: int = 1
 
 
 class Manifest(list):
@@ -105,6 +109,7 @@ class Manifest(list):
         self.name = name
         self.span = f"replay:{name}"
         self.per_kernel: Dict[Callable, int] = {}
+        self.levels_per_kernel: Dict[Callable, int] = {}
 
 
 def launched(kernel: Callable) -> None:
@@ -118,20 +123,23 @@ def launched(kernel: Callable) -> None:
         _recording.append(Launch(kernel.symbol, "/".join(_path), kernel))
 
 
-def launched_run(launcher: Callable, kernel: Callable, paths) -> None:
-    """Count one call of ``launcher``, which issued a launch of ``kernel``
-    for each of ``paths``, in order (a run of levels: ``gL05/fb8``, ...).
-    Outside a capture ``launcher.calls`` grows by one, and
-    ``launcher.launches`` and ``kernel.launches`` by the launches.  In a
-    capture each launch joins the graph's manifest as ``launched`` keeps
-    it, its path under the scopes open there."""
+def launched_run(launcher: Callable, launches, counts) -> None:
+    """Count one call of ``launcher``, which issued ``launches`` in order,
+    each ``(kernel, path, levels)``: a launch of the wrapper ``kernel`` that
+    computed ``levels`` levels of a pass (a run of levels: ``gL05/fb8``, ...,
+    a column run ``gL04-gL298/run``).  Outside a capture ``launcher.calls``
+    grows by one and each of ``counts``, ``(owner, attribute, n)``, the
+    launcher's and the kernels' counters, by its ``n``.  In a capture each
+    launch joins the graph's manifest as ``launched`` keeps it, its path
+    under the scopes open there."""
     if _recording is None:
         launcher.calls += 1
-        launcher.launches += len(paths)
-        kernel.launches += len(paths)
+        for owner, name, n in counts:
+            setattr(owner, name, getattr(owner, name) + n)
     else:
         under = "".join(f"{name}/" for name in _path)
-        _recording.extend(Launch(kernel.symbol, under + path, kernel) for path in paths)
+        _recording.extend(Launch(kernel.symbol, under + path, kernel, levels)
+                          for kernel, path, levels in launches)
 
 
 @contextlib.contextmanager
@@ -152,15 +160,23 @@ def capturing():
         _recording = None
         _path.clear()
     m.per_kernel = dict(collections.Counter(launch.kernel for launch in m))
+    levels = collections.Counter()
+    for launch in m:
+        if hasattr(launch.kernel, "levels"):
+            levels[launch.kernel] += launch.levels
+    m.levels_per_kernel = dict(levels)
     _manifests[m.name] = m
 
 
 def replayed(m: Optional[Manifest], n: int = 1) -> None:
     """Add ``n`` replays of the graph of manifest ``m`` (none: a graph that
-    kept none) to its kernels' launch counters."""
+    kept none) to its kernels' launch counters, and to the ``levels`` of a
+    kernel that counts the levels its launches computed."""
     if m is not None:
         for kernel, count in m.per_kernel.items():
             kernel.launches += count * n
+        for kernel, levels in m.levels_per_kernel.items():
+            kernel.levels += levels * n
 
 
 def manifest(name: str) -> Optional[Manifest]:

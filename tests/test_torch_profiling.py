@@ -135,11 +135,13 @@ def test_profile_pass_on_cpu(capsys):
     assert any(line.startswith("graph ") for line in out)
 
 
-def test_profile_pass_gives_a_runs_launches_back_to_their_levels(tmp_path):
+@pytest.mark.parametrize("middle", ["gL01/fb3", "gL01-gL05/run"])
+def test_profile_pass_gives_a_runs_launches_back_to_their_levels(tmp_path, middle):
     """A card's trace of two passes, each one ``levels`` span whose C call
     launched three level kernels (and made one other runtime call), one
     kernel record lost: each record is its level's, by launch order within
-    its span."""
+    its span; the middle launch a level's or a column run's over five
+    levels, a graph launch either way."""
     from feynmandiagram_tpu_torch.benchmarks import profile_pass
 
     def span(name, ts, dur):
@@ -165,10 +167,10 @@ def test_profile_pass_gives_a_runs_launches_back_to_their_levels(tmp_path):
         events += [kernel(corr + k, 1.0 + k) for k in (1, 2, 3) if (p, k) != (1, 2)]
     trace = tmp_path / "trace.json"
     trace.write_text(json.dumps({"traceEvents": events}))
-    runs = [("gL00/fb2", "gL01/fb3", "gL02/sb1")]
+    runs = [("gL00/fb2", middle, "gL06/sb1")]
     r = profile_pass.aggregate(str(trace), 2, True, runs)
     assert r["level_op"] == {"leaf": [2.0, 0.5], "gL00/fb2": [2.0, 1.0],
-                             "gL01/fb3": [1.5, 0.5], "gL02/sb1": [4.0, 1.0]}
+                             middle: [1.5, 0.5], "gL06/sb1": [4.0, 1.0]}
     assert r["phase_op"]["graph"] == [7.5, 2.5] and r["level_kernels_in_graph"] == 2.5
     assert r["level_host"]["levels"] == r["phase_host"]["graph"] == 50.0
     assert r["unattributed_ops"] == 0
