@@ -64,8 +64,8 @@ output line or more each:
    (``benchmarks.bench_config4.config4_roots``: Σ -> ``taylorAD([2, 2])``
    -> 36 roots whose leaves carry G and V derivative orders 0-2, generated
    once and lowered fused and bucketed), float32 on cuda: the level
-   launches of a pass against the levels that hold buckets or plans, no launch
-   bucket by bucket, the pass against the port's float64 plain path (worst
+   launches of a pass against the levels that hold buckets or plans, the
+   pass against the port's float64 plain path (worst
    root and its order tuple), fused at batch 4096, 4097 and 8192, bucketed
    at 256; for the fused lowering, Monte-Carlo samples/s at batch 8192 and
    16384 with the device's busy time, idle share and the level launches'
@@ -76,14 +76,12 @@ output line or more each:
    float64: the U=0 atom's g(τ) against the free kernel and against the
    same on the CPU, the ED self-energy against ``exact_sigma``, the dimer's
    first-order hopping identity and Wick's theorem at U=0;
-5. per-pass device and wall times of the level launches, of the same kernel
-   called bucket by bucket, and of the plain version (device time: CUDA
-   events around launches queued behind a sleep kernel), per level beside
-   the level's bound, the bound itself (bytes of the distinct rows a level
-   reads and of the rows it writes, over 3.35 TB/s), a sweep of the
-   launch geometry, ``torch.sparse.mm`` over the bucketed pass's buckets as
-   the library yardstick, the fused pass's device time in bins of the
-   launch's bytes, Monte-Carlo samples/s of both slices with their launch
+5. per-pass device and wall times of the level launches and of the plain
+   version (device time: CUDA events around launches queued behind a sleep
+   kernel), per level beside the level's bound, the bound itself (bytes of
+   the distinct rows a level reads and of the rows it writes, over 3.35
+   TB/s), ``torch.sparse.mm`` over the bucketed pass's buckets as
+   the library yardstick, Monte-Carlo samples/s of both slices with their launch
    counts and the device's idle share (1 - the profiler's busy time, the
    union of the kernels' intervals, / the wall of the same traced calls,
    CUDA events around them, from one trace; a busy time above that wall
@@ -172,10 +170,10 @@ output line or more each:
 10a. the eager pass from its launch plans (``launch plan:`` and ``launch
    plan time:`` lines, ``launch_plan_checks``): order-4 Gamma4 fused at
    4096 and config 4 fused at 8192, the graph phase from the plan (each run
-   of levels one ``levels_gather_reduce``) bit for bit against the
-   level-by-level path in float32, float32/float64 and compensated, 13 / 37
-   level launches a pass, all of them from the run launcher, one plan
-   built; the eager call against the call before the plans bit for bit,
+   of levels one ``levels_gather_reduce``) bit for bit against one-level
+   launches and against the level-by-level plain pass in float32,
+   float32/float64 and compensated, 13 / 37 levels launched a pass, one
+   plan built; the eager call against the call before the plans bit for bit,
    and both calls' dispatch, call and host-only clocks in turns;
 10b. stretches of thin levels as column runs (``column run:`` and ``column
    run time:`` lines, ``column_run_checks``; alone: ``python3 chip_smoke.py
@@ -332,10 +330,6 @@ RAGGED_BATCH = 4097     # no multiple of 4: rows lose their 16-byte alignment
 SHARD_2X2_BATCHES = (BATCH, BATCH + 2)
 SAMPLE_MC_BATCH = 1024
 C5_CALLS = 3
-M = 2 ** 20
-# (widest record in pieces, bytes a column group may touch): the kernel's
-# launch geometry, None for what the wrapper picks
-GEOMETRIES = (None, (4, 24 * M), (2, 24 * M), (1, 24 * M), (4, 6 * M), (4, 1024 * M))
 # the JAX script's first two output values of each probe (on its data)
 PROBE_FIRST = {"dma8": [704, 705], "dmagrp": [192, 193], "vmemrow": [704, 705],
                "vmem8": [704, 705], "acc": [2432, 2436], "onehot": [704, 705],
@@ -431,12 +425,13 @@ def probe_library_calls(w, rows):
 def launch_plan_checks(dev, smi: str, cases) -> dict:
     """``launch plan:`` lines.  For each case ``(label, compiled, n_loop,
     n_tau)`` at its batch of PLAN_BATCHES: the graph phase from the launch
-    plan (each run of levels one ``levels_gather_reduce``) against the
-    level-by-level path (``Evaluator.steps`` None: a checked
-    ``level_gather_reduce`` a level) bit for bit, in float32, float32 with
-    float64 accumulation and float32 compensated, three passes each, with
-    the level launches, the run launcher's calls and share of them, and the
-    plans built (one); the whole eager call through the plan against the
+    plan (each run of levels one ``levels_gather_reduce``) against one-level
+    launches (``Evaluator.steps`` None: a checked ``level_gather_reduce`` a
+    level) and against the level-by-level plain pass (``kernel=False``) bit
+    for bit, in float32, float32 with float64 accumulation and float32
+    compensated, three passes each, with the levels launched, the run
+    launcher's calls and the plans built (one); the whole eager call through
+    the plan against the
     call before it (the leaf phase through the checked ``leaf_eval``, the
     levels one by one) bit for bit; then both calls' clocks in turns: the
     host's dispatch (samples handed over to the entry's return) and the
@@ -500,37 +495,36 @@ def launch_plan_checks(dev, smi: str, cases) -> dict:
             stepwise = make_evaluator(c.lowered, device=dev, dtype=torch.float32, acc_dtype=acc,
                                       compensated=comp)
             stepwise.steps = None
+            plain = make_evaluator(c.lowered, device=dev, dtype=torch.float32, acc_dtype=acc,
+                                   compensated=comp, kernel=False)
             runs = sum(1 for step in planned.steps if isinstance(step, list))
             built = evaluator_mod.launch_plan.built
-            level_fn.launches = run_fn.launches = run_fn.calls = col_fn.levels = 0
+            level_fn.launches = run_fn.calls = col_fn.levels = 0
             got = [planned(leaves) for _ in range(3)]
-            counted = (level_fn.launches + col_fn.levels,
-                       run_fn.launches + col_fn.levels, run_fn.calls,
+            counted = (level_fn.launches + col_fn.levels, run_fn.calls,
                        evaluator_mod.launch_plan.built - built)
             level_fn.launches = col_fn.levels = 0
             want = stepwise(leaves)
+            want_plain = plain(leaves)
             torch.cuda.synchronize()
             same = all(torch.equal(g, want) for g in got)
-            share = counted[1] / max(counted[0], 1)
+            same_plain = all(torch.equal(g, want_plain) for g in got)
             print(f"launch plan: {label}, batch {batch} {name}: 3 passes from the launch plan "
-                  f"against the level-by-level path bit for bit {same}; {counted[0]} levels "
-                  f"launched, alone or in column runs ({n_levels} a pass expected), "
-                  f"{counted[1]} of them from "
-                  f"{counted[2]} run launcher calls ({runs} run(s) a pass; share "
-                  f"{100 * share:.1f}%), {counted[3]} plan(s) built; the level-by-level pass "
-                  f"{level_fn.launches} launches", flush=True)
-            if not same or not torch.isfinite(want).all():
-                fail(f"launch plan {label} {name}: the pass from the plan left the "
-                     f"level-by-level one")
-            if counted != (3 * n_levels, 3 * n_levels, 3 * runs, 1) \
-                    or level_fn.launches != n_levels:
-                fail(f"launch plan {label} {name}: counted {counted} (level launches, of the "
-                     f"run launcher, its calls, plans built), expected "
-                     f"{(3 * n_levels, 3 * n_levels, 3 * runs, 1)}")
-            rep["checks"][name] = {"bit_for_bit": same, "launches": counted[0],
-                                   "launcher_share": share, "runs": runs,
-                                   "plans_built": counted[3]}
-            del planned, stepwise, got, want
+                  f"against one-level launches bit for bit {same}, against the level-by-level "
+                  f"plain pass {same_plain}; {counted[0]} levels launched, alone or in column "
+                  f"runs ({n_levels} a pass expected), from {counted[1]} run launcher calls "
+                  f"({runs} run(s) a pass), {counted[2]} plan(s) built; the one-level launches "
+                  f"{level_fn.launches}", flush=True)
+            if not same or not same_plain or not torch.isfinite(want).all():
+                fail(f"launch plan {label} {name}: the pass from the plan left the one-level "
+                     f"launches or the plain pass")
+            if counted != (3 * n_levels, 3 * runs, 1) or level_fn.launches != n_levels:
+                fail(f"launch plan {label} {name}: counted {counted} (levels launched, run "
+                     f"launcher calls, plans built), expected {(3 * n_levels, 3 * runs, 1)}")
+            rep["checks"][name] = {"bit_for_bit": same, "plain_bit_for_bit": same_plain,
+                                   "launches": counted[0], "runs": runs,
+                                   "plans_built": counted[2]}
+            del planned, stepwise, plain, got, want, want_plain
         plan = c.leaf_fn.plan
 
         def leaf_before(varK, varT, out):
@@ -738,8 +732,7 @@ def column_run_checks(dev, smi: str, cases) -> dict:
         return x.view({8: torch.int64, 4: torch.int32, 2: torch.int16}[x.element_size()])
 
     def zero_counts():
-        level_fn.launches = col.launches = col.levels = 0
-        run_fn.calls = run_fn.launches = 0
+        level_fn.launches = col.launches = col.levels = run_fn.calls = 0
 
     def counts():
         return (level_fn.launches, col.launches, col.levels)
@@ -1230,8 +1223,8 @@ def main() -> None:
     def check_slice(c, samples, label, names=None, diagnose=None, misses=None):
         """The float32 pass of c through the kernel against the port's plain
         path in float64 on the card, on each (varK, varT) of samples: a
-        pass must launch the kernel once per level that holds buckets or plans and
-        never bucket by bucket, and each root's max|d|/max|ref| must be
+        pass must launch the kernel once per level that holds buckets or
+        plans, and each root's max|d|/max|ref| must be
         within SLICE_TOL (names: each root's name in the failure;
         diagnose(c, varK, varT, root, ref) runs on a miss and returns a dict
         of what it found).  A miss fails the run here, or, given the list
@@ -1248,15 +1241,13 @@ def main() -> None:
             batch = vt.shape[-1]
             ref = ref_graph(ref_leaf(vk, vt))
             torch.cuda.synchronize()
-            kernel_fn.launches = 0
             zero_levels()
             leaf_eval.leaf_eval.launches = 0
             got = c(vk, vt)
             torch.cuda.synchronize()
-            if levels_run() != n_levels or kernel_fn.launches != 0:
-                fail(f"{label}, batch {batch}: {levels_run()} level and "
-                     f"{kernel_fn.launches} bucket launches in a pass, expected {n_levels} (one "
-                     f"per level that holds buckets or plans) and 0")
+            if levels_run() != n_levels:
+                fail(f"{label}, batch {batch}: {levels_run()} levels launched in a pass, "
+                     f"expected {n_levels} (one per level that holds buckets or plans)")
             if leaf_launches() != 1:
                 fail(f"{label}, batch {batch}: the leaf kernel launched {leaf_launches()} "
                      f"times in a pass, expected once")
@@ -1434,7 +1425,7 @@ def main() -> None:
     def mc_lines(c, para, batches, label):
         """Monte-Carlo samples/s of c's float32 pass at each batch, one line
         each: the level launches of a pass (over three passes of mc_run they
-        must be the levels that hold buckets or plans, none bucket by bucket), the
+        must be the levels that hold buckets or plans), the
         wall of one pass untraced, the profiler's device busy time (beside
         the kernels' own times summed) and the wall of the same traced
         passes (profile_calls), the idle share 1 -
@@ -1452,14 +1443,13 @@ def main() -> None:
             def one():
                 mc_run(c.fn, iters=1, seed=SEED, **mc_kw)
 
-            kernel_fn.launches = 0
             zero_levels()
             leaf_eval.leaf_eval.launches = 0
             mc_run(c.fn, iters=3, seed=SEED, **mc_kw)
             torch.cuda.synchronize()
-            if levels_run() != 3 * n_levels or kernel_fn.launches != 0:
-                fail(f"{label} mc_run: {levels_run()} level and {kernel_fn.launches} "
-                     f"bucket launches in 3 passes, expected {3 * n_levels} and 0")
+            if levels_run() != 3 * n_levels:
+                fail(f"{label} mc_run: {levels_run()} levels launched in 3 passes, expected "
+                     f"{3 * n_levels}")
             if leaf_launches() != 3:
                 fail(f"{label} mc_run: the leaf kernel launched {leaf_launches()} times in 3 "
                      f"passes, expected 3")
@@ -1786,7 +1776,6 @@ def main() -> None:
             leaves = leaf32(vk, vt)
             want = single(leaves)
             torch.cuda.synchronize()
-            kernel_fn.launches = 0
             zero_levels()
             got = sh(leaves)
             torch.cuda.synchronize()
@@ -1795,13 +1784,13 @@ def main() -> None:
             d = (got.double() - ref).abs()
             rel = (d.max(dim=1).values / ref.abs().max(dim=1).values).max().item()
             print(f"scale-out: {mode} sharded pass, batch {batch} f32: {n_launch} level launches "
-                  f"({n_launch // N_GRAPH} a rank), {kernel_fn.launches} bucket launches; vs the "
+                  f"({n_launch // N_GRAPH} a rank); vs the "
                   f"unsharded evaluator on the same lowering bit for bit: "
                   f"{torch.equal(got, want)}; vs the f64 plain path worst per-root "
                   f"{rel:.3e} (limit {SLICE_TOL:g})", flush=True)
-            if n_launch != N_GRAPH * want_lvl or kernel_fn.launches != 0:
-                fail(f"scale-out {mode}, batch {batch}: {n_launch} level and "
-                     f"{kernel_fn.launches} bucket launches, expected {N_GRAPH * want_lvl}, 0")
+            if n_launch != N_GRAPH * want_lvl:
+                fail(f"scale-out {mode}, batch {batch}: {n_launch} level launches, expected "
+                     f"{N_GRAPH * want_lvl}")
             if got.shape != want.shape or not torch.equal(got, want):
                 fail(f"scale-out {mode}, batch {batch}: the sharded roots differ from the "
                      f"unsharded evaluator's: max|diff| {(got - want).abs().max().item():.3e}")
@@ -1873,7 +1862,6 @@ def main() -> None:
         evaluator on the same draws, bit for bit or within SHARD_MC_TOL.
         Returns the step's planner stats and whether the means were bit for
         bit."""
-        kernel_fn.launches = 0
         zero_levels()
         sh_means, sh_step, sh_mesh = config5_serving.serve(
             low_s, tables_s, device=dev, batch_per_device=BATCH, iters=SHARD_MC_ITERS,
@@ -2004,15 +1992,13 @@ def main() -> None:
         hub_varT[0] = 0.0
         hub_ref = plain_hs.fn(hub_varT, HUBBARD_U)
         torch.cuda.synchronize()
-        kernel_fn.launches = 0
         zero_levels()
         hub_got = hs.fn(hub_varT, HUBBARD_U)
         torch.cuda.synchronize()
         n_launch = levels_run()
-        if n_launch != HUBBARD_BUCKET_LEVELS[order] or kernel_fn.launches != 0:
-            fail(f"Hubbard order {order}: {n_launch} level and {kernel_fn.launches} bucket "
-                 f"launches in a pass, expected {HUBBARD_BUCKET_LEVELS[order]} (one per level "
-                 f"that holds buckets or plans) and 0")
+        if n_launch != HUBBARD_BUCKET_LEVELS[order]:
+            fail(f"Hubbard order {order}: {n_launch} level launches in a pass, expected "
+                 f"{HUBBARD_BUCKET_LEVELS[order]} (one per level that holds buckets or plans)")
         if (hub_got.shape != (2, HUBBARD_BATCH) or hub_got.dtype != torch.float32
                 or not torch.isfinite(hub_got).all()):
             fail(f"Hubbard order {order}: output {hub_got.dtype} {tuple(hub_got.shape)} or not "
@@ -2227,34 +2213,6 @@ def main() -> None:
                                       bl[k:k + QUEUED_BUCKETS]])
                    for k in range(0, len(bl), QUEUED_BUCKETS))
 
-    def launch_sizes(low, w, bl):
-        """Device time of the fused pass's bucket launches by the launch's
-        bytes: the launches of each bin, in pass order, timed by queued_ms
-        (with the gaps between them).  Requested bytes: every gathered row,
-        padding operands included, and every written row; real: gathered
-        rows other than the constant-one row that pads operands and terms."""
-        ones = [s for s, v in zip(np.asarray(low.const_slots), np.asarray(low.const_values))
-                if v == 1.0]
-        row = BATCH * 4
-        bins = {"< 2 MiB": [[], 0, 0], "2-16 MiB": [[], 0, 0], ">= 16 MiB": [[], 0, 0]}
-        for (idx, _, _), launch in zip(buckets_of(low), bl):
-            n_op, arity, count = np.shape(idx)
-            req = (n_op * arity + 1) * count * row
-            real = (int(np.isin(idx, ones, invert=True).sum()) + count) * row
-            key = "< 2 MiB" if req < 2 ** 21 else "2-16 MiB" if req < 2 ** 24 else ">= 16 MiB"
-            bins[key] = [bins[key][0] + [launch], bins[key][1] + req, bins[key][2] + real]
-        pass_us = 1e3 * buckets_ms(kernel_fn, w, bl)
-        parts = []
-        for key, (ops, req, real) in bins.items():
-            if ops:
-                t = 1e3 * queued_ms(lambda: [kernel_fn(w, i, f, s) for i, f, s in ops])
-                parts.append(f"{key}: {len(ops)} launches, {t:.1f} us ({t / pass_us:.3f} of "
-                             f"the pass, {t / len(ops):.2f} us each), real "
-                             f"{real / t / 1e3:.1f} GB/s, requested {req / t / 1e3:.1f} GB/s")
-        print(f"launches: fused batch {BATCH} f32, {len(bl)} bucket launches back to back, "
-              f"{pass_us:.1f} us of device time; by requested bytes: " + "; ".join(parts)
-              + f"  [{smi}]", flush=True)
-
     def in_turns(measure, k_fn, p_fn):
         """Kernel and plain in turns (plain, kernel, kernel, plain)."""
         p1, k1, k2, p2 = measure(p_fn), measure(k_fn), measure(k_fn), measure(p_fn)
@@ -2269,27 +2227,14 @@ def main() -> None:
         w = torch.as_tensor(gen.uniform(0.5, 1.5, (c.lowered.num_slots, BATCH)),
                             dtype=torch.float32, device=dev)
 
-        def all_buckets(op):
-            return lambda: [op(w, i, f, s) for i, f, s in bl]
-
         tabs = tables_of(c.lowered, torch.float32)
-
-        def all_levels(geometry=None):
-            return [lambda t=t: level_fn(w, t, geometry=geometry) for t in tabs]
-
-        def level_pass(geometry=None):
-            fns = all_levels(geometry)
-            return lambda: [fn() for fn in fns]
-
-        kd, pd = in_turns(lambda op: buckets_ms(op, w, bl), kernel_fn, plain_fn)
+        pd = buckets_ms(plain_fn, w, bl)
         ld, per_level, bounds = level_pass_ms(c.lowered, w, tabs)
-        kb, pb = in_turns(wall_ms, all_buckets(kernel_fn), all_buckets(plain_fn))
-        lb = wall_ms(level_pass())
+        lb, pb = in_turns(wall_ms, lambda: [level_fn(w, t) for t in tabs],
+                          lambda: [plain_fn(w, i, f, s) for i, f, s in bl])
         bound = sum(b["ms"] for b in bounds)
-        times[mode] = {"level_ms": ld, "bucket_ms": kd, "plain_ms": pd, "bound_ms": bound,
+        times[mode] = {"level_ms": ld, "plain_ms": pd, "bound_ms": bound,
                        "bound_by": max(bounds, key=lambda b: b["ms"])["by"]}
-        if mode == "fused":
-            launch_sizes(c.lowered, w, bl)
         plain_graph = make_evaluator(c.lowered, device=dev, dtype=torch.float32, kernel=False)
         leaves = c.leaf_fn(varK, varT)
         kg, pg = in_turns(wall_ms, lambda: c.graph_fn(leaves), lambda: plain_graph(leaves))
@@ -2298,21 +2243,11 @@ def main() -> None:
         print(f"time: {mode} batch {BATCH} f32, the buckets of a pass, device, back to back: "
               f"{len(tabs)} level launches {ld:.4f} ms ({bound / ld:.3f} of the bound "
               f"{bound:.4f} ms = distinct rows per level + written rows over 3.35 TB/s; rows "
-              f"counted per bucket {sum(b['per_bucket_ms'] for b in bounds):.4f} ms); the same "
-              f"kernel bucket by bucket, {len(bl)} launches, {kd:.4f} ms; plain {pd:.4f} ms.  "
-              f"Wall: level launches {lb:.4f} ms, bucket by bucket {kb:.4f} ms, plain "
+              f"counted per bucket {sum(b['per_bucket_ms'] for b in bounds):.4f} ms); plain, "
+              f"{len(bl)} buckets, {pd:.4f} ms.  Wall: level launches {lb:.4f} ms, plain "
               f"{pb:.4f} ms; graph phase wall kernel {kg:.4f} ms vs plain {pg:.4f} ms, queued "
               f"{gq:.4f} ms  [{smi}]", flush=True)
         levels_line(f"levels: {mode} batch {BATCH} f32", per_level, bounds)
-        for batch in (BATCH, 4 * BATCH):
-            wg = w if batch == BATCH else rand_w(c.lowered.num_slots, batch, torch.float32)
-            geo = {g: queued_ms(lambda: [level_fn(wg, t, geometry=g) for t in tabs])
-                   for g in GEOMETRIES}
-            print(f"geometry: {mode} batch {batch} f32, level launches of a pass, device ms by "
-                  f"(widest record in pieces, MiB a column group may touch): " + ", ".join(
-                      f"{'default' if g is None else (g[0], g[1] // M)} {t:.4f}"
-                      for g, t in geo.items()) + f"  [{smi}]", flush=True)
-            del wg
         if mode == "bucketed":
             mats = sparse_buckets(c.lowered)
             outs = [torch.sparse.mm(m, w) for m in mats]
@@ -2518,11 +2453,10 @@ def main() -> None:
         low = lower(gs, leafmap_of(gs), sum_mode="fused", cse=True)
         nl = low.num_leaves - len(low.const_slots)
         n_lv = sum(1 for lvl in low.levels if level_buckets(lvl))
-        kernel_fn.launches = 0
         zero_levels()
         ones = make_evaluator(low, device=dev, dtype=torch.float64)(np.ones((nl, BATCH)))
         torch.cuda.synchronize()
-        if levels_run() != n_lv or kernel_fn.launches != 0:
+        if levels_run() != n_lv:
             fail(f"gv counterterms, {label}: {levels_run()} level launches, expected {n_lv}")
         host = [eval_graph(g) for g in gs]
         vals = gen.uniform(0.5, 1.5, (nl, BATCH))
@@ -2719,14 +2653,13 @@ def main() -> None:
     w = torch.as_tensor(gen.uniform(0.5, 1.5, (c64.lowered.num_slots, BATCH)),
                         dtype=torch.float32, device=dev)
 
-    kd64, pd64 = in_turns(lambda op: buckets_ms(op, w, bl, acc_dtype=torch.float64),
-                          kernel_fn, plain_fn)
+    pd64 = buckets_ms(plain_fn, w, bl, acc_dtype=torch.float64)
     tabs64 = tables_of(c64.lowered, torch.float64)
     ld64 = queued_ms(lambda: [level_fn(w, t, acc_dtype=torch.float64) for t in tabs64])
     print(f"time: fused batch {BATCH} f32 storage / f64 accumulation, the buckets of a pass, "
           f"device, back to back: {len(tabs64)} level launches {ld64:.4f} ms (f32/f32 "
-          f"{times['fused']['level_ms']:.4f} ms above); bucket by bucket, {len(bl)} launches, "
-          f"{kd64:.4f} ms vs plain {pd64:.4f} ms  [{smi}]", flush=True)
+          f"{times['fused']['level_ms']:.4f} ms above); plain, {len(bl)} buckets, "
+          f"{pd64:.4f} ms  [{smi}]", flush=True)
 
     para2 = DiagPara(type=Ver4Diag, innerLoopNum=2, hasTau=True, filter=(NoHartree,),
                      interaction=(Interaction(ChargeCharge, Instant),))
@@ -3151,11 +3084,11 @@ def main() -> None:
     phase("probes")
 
     # -- 9. gather strategies and the streaming roofline
-    kernel_fn.launches = 0
+    level_fn.launches = 0
     gather = probe_gather.run()
-    if not gather["bucket_ok"] or kernel_fn.launches < 1:
+    if not gather["bucket_ok"] or level_fn.launches < 1:
         fail(f"probe_gather: bucket kernel check {gather['bucket_ok']}, "
-             f"{kernel_fn.launches} launches")
+             f"{level_fn.launches} launches")
 
     phase("gather probe")
 
@@ -3621,16 +3554,15 @@ def main() -> None:
             mem_e = torch.cuda.max_memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             loop = CapturedLoop(c, **kw)
-            kernel_fn.launches = 0
             zero_levels()
             leaf_eval.leaf_eval.launches = 0
             got = loop.run(SEED, 3)
             torch.cuda.synchronize()
             mem_j = torch.cuda.max_memory_allocated()
-            counted = (levels_run(), kernel_fn.launches, leaf_launches())
-            if counted != (3 * n_levels, 0, 3):
-                fail(f"jit {label} mc, batch {batch}: 3 replays counted {counted} level, "
-                     f"bucket and leaf launches, expected {(3 * n_levels, 0, 3)}: a replay "
+            counted = (levels_run(), leaf_launches())
+            if counted != (3 * n_levels, 3):
+                fail(f"jit {label} mc, batch {batch}: 3 replays counted {counted} level and "
+                     f"leaf launches, expected {(3 * n_levels, 3)}: a replay "
                      f"counts its graph's launch manifest, the eager pass's launches")
             draws = "the eager draws"
             if not torch.equal(got, want):
@@ -4020,11 +3952,9 @@ def main() -> None:
         "max_abs_err_kahan": level_err["kahan"],
         "ms": fused["level_ms"], "plain_ms": fused["plain_ms"],
         "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"], "library_ms": None,
-        "bucket_by_bucket_ms": fused["bucket_ms"],
         "bucketed": {"launches_per_pass": launches["bucketed"], "ms": bucketed["level_ms"],
                      "plain_ms": bucketed["plain_ms"], "bound_ms": bucketed["bound_ms"],
-                     "bound_by": bucketed["bound_by"], "library_ms": bucketed["library_ms"],
-                     "bucket_by_bucket_ms": bucketed["bucket_ms"]},
+                     "bound_by": bucketed["bound_by"], "library_ms": bucketed["library_ms"]},
         "sharded": sharded_report,
         "hubbard": {str(order): h for order, h in hubbard.items()},
         "config4": config4, "gv_sigma6": gv_report["sigma6"],

@@ -13,9 +13,10 @@ one gather 1 GiB).  The strategies, with the script's lines:
 - ``torch.index_select`` in place of ``jnp.take`` (``:38-39``);
 - ``index_select`` on sorted indices (``:46-47``);
 - gather * fac + 8-way reduce (``:50-53``), once in plain PyTorch and once
-  through the port's own ``bucket_gather_reduce`` kernel with n_op 1,
-  arity 8 and count E/8, which puts the main path's kernel against the
-  roofline measured in the same run;
+  through the port's own level kernel on one bucket of n_op 1, arity 8
+  and count E/8, packed once before the timed calls (``bucket_level``),
+  which puts the main path's kernel against the roofline measured in the
+  same run;
 - the one-hot product of a C = 1024 x W = 2048 selector with a window of
   ``w`` (``:68-86``), as ``torch.matmul`` in TF32 (``allow_tf32`` is set
   for that product only).  It is a plain product outside any kernel, which
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 
 from . import card_name, median_ms
-from ..ops.kernels import bucket_gather_reduce
+from ..ops.kernels import LevelTables, level_gather_reduce, pack_level
 
 S, B, E = 32768, 4096, 65536
 W, C = 2048, 1024     # one-hot window rows, selected rows
@@ -86,11 +87,17 @@ def gather_scale_sum(w: torch.Tensor, idx: torch.Tensor, fac: torch.Tensor) -> t
     return g.reshape(ARITY, -1, w.shape[1]).sum(dim=0)
 
 
-def gather_scale_sum_kernel(w_ext: torch.Tensor, s: int, idx: torch.Tensor,
-                            fac: torch.Tensor) -> torch.Tensor:
-    """The same through ``bucket_gather_reduce``, written into rows ``s ..``
-    of ``w_ext``; returns those rows."""
-    bucket_gather_reduce(w_ext, idx.view(1, ARITY, -1), fac.view(ARITY, -1), s)
+def bucket_level(idx: torch.Tensor, fac: torch.Tensor, s: int) -> LevelTables:
+    """The bucket of ``gather_scale_sum`` writing rows ``s ..``, packed as a
+    level of one bucket on ``fac``'s device."""
+    return pack_level([(idx.view(1, ARITY, -1).cpu(), fac.view(ARITY, -1).cpu(), s)],
+                      fac.device, fac.dtype)
+
+
+def gather_scale_sum_kernel(w_ext: torch.Tensor, s: int, tables: LevelTables) -> torch.Tensor:
+    """The same through the level kernel on ``bucket_level``'s tables,
+    written into rows ``s ..`` of ``w_ext``; returns those rows."""
+    level_gather_reduce(w_ext, tables)
     return w_ext[s:]
 
 
@@ -132,12 +139,13 @@ def run() -> dict:
     bench("torch.index_select", lambda: take(w, idx))
     bench("index_select, sorted idx", lambda: take(w, x["idx_sorted"]))
     bench("gather*fac + 8-way reduce (plain)", lambda: gather_scale_sum(w, idx, fac))
+    tables = bucket_level(idx, fac, S)
     bench("gather*fac + 8-way reduce (bucket kernel)",
-          lambda: gather_scale_sum_kernel(x["w_ext"], S, idx, fac))
+          lambda: gather_scale_sum_kernel(x["w_ext"], S, tables))
     print(f"bucket kernel at B={B}: {rows[-1][2] / rows[0][2]:.3f} of the streaming "
           f"roofline measured here  [{card}]", flush=True)
 
-    got = gather_scale_sum_kernel(x["w_ext"], S, idx, fac)
+    got = gather_scale_sum_kernel(x["w_ext"], S, tables)
     ref = gather_scale_sum(w, idx, fac)
     size = gather_scale_sum(w.abs(), idx, fac.abs())
     diff = (got - ref).abs()

@@ -45,9 +45,7 @@
 //   tile by 8 pieces of 32 * V batch columns, V the elements of a 16-byte
 //   load; a record is a row tile and the pieces of the item that one block
 //   takes.  One block of 8 warps per record and item, one warp per output
-//   row; blocks stride over the level's items.  A single bucket
-//   (fd_bucket_gather_reduce) is the same kernel with its one descriptor
-//   passed by value.
+//   row; blocks stride over the level's items.
 // - A record is one 32-byte load, and its indices and factors are staged in
 //   shared memory once per block, for all the pieces of the record.  A row
 //   tile of many terms has a record per piece, so that its long chains of
@@ -105,7 +103,7 @@ __device__ __forceinline__ void narrow_to(double* p, double v) { *p = v; }
 __device__ __forceinline__ void narrow_to(float* p, double v) { *p = __double2float_rn(v); }
 __device__ __forceinline__ void narrow_to(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// type codes of the C entry points
+// type codes of the C entry point
 enum TypeCode { kF32 = 0, kF64 = 1, kBF16 = 2 };
 
 constexpr int kRows = 8;                  // output rows of an item, one warp each
@@ -258,7 +256,11 @@ struct Geometry {
 
 // Items in order: column group, record, item of the group.  tiles ==
 // nullptr: the launch has the one bucket `single`, cut here into row tiles
-// and each row tile into records of the pieces that single.span names.
+// and each row tile into records of the pieces that single.span names.  No
+// entry launches that mode (fd_levels_gather_reduce refuses a null tile
+// table).  The branch stays: without it nvcc allocated the kernel otherwise
+// (more registers in one instantiation, new spills in two) and some levels'
+// times moved by more than 1% either way (PERF.md §6).
 template <typename T, typename A, int V, bool KAHAN>
 __global__ void __launch_bounds__(kThreads)
 gather_reduce_kernel(T* __restrict__ wout, const T* __restrict__ win,
@@ -308,7 +310,7 @@ gather_reduce_kernel(T* __restrict__ wout, const T* __restrict__ win,
                                     s_idx, s_fac);
         break;
       default:
-        break;  // the entry points and pack_level admit n_op 1..4 only
+        break;  // pack_level admits n_op 1..4 only
     }
   }
 }
@@ -318,8 +320,7 @@ struct Launch {
   const void* src;          // rows the indices read: w itself, or another buffer
   const void* idx_pool;
   const void* fac_pool;
-  const void* tiles;        // nullptr: one bucket, `single`
-  Tile single;
+  const void* tiles;
   int n_records;
   int64_t batch;
   int64_t group_cols;       // width of a column group in elements, rounded down to
@@ -341,7 +342,7 @@ template <typename T, typename A, int V, bool KAHAN> cudaError_t launch_v(const 
   gather_reduce_kernel<T, A, V, KAHAN><<<static_cast<unsigned>(grid), kThreads, 0, p.stream>>>(
       static_cast<T*>(p.w), static_cast<const T*>(p.src),
       static_cast<const int32_t*>(p.idx_pool), static_cast<const A*>(p.fac_pool),
-      static_cast<const Tile*>(p.tiles), p.single, g, p.batch);
+      static_cast<const Tile*>(p.tiles), Tile{}, g, p.batch);
   return cudaGetLastError();
 }
 
@@ -357,7 +358,9 @@ template <typename T, typename A> cudaError_t launch_ta(const Launch& p, int com
 }
 
 cudaError_t launch(const Launch& p, int storage, int acc, int compensated) {
-  if (p.n_records < 1 || p.batch < 1 || p.group_cols < 1) return cudaErrorInvalidValue;
+  if (p.tiles == nullptr || p.n_records < 1 || p.batch < 1 || p.group_cols < 1) {
+    return cudaErrorInvalidValue;
+  }
   if (storage == kF32 && acc == kF32) return launch_ta<float, float>(p, compensated);
   if (storage == kF64 && acc == kF64) return launch_ta<double, double>(p, compensated);
   if (storage == kF32 && acc == kF64) return launch_ta<float, double>(p, compensated);
@@ -637,43 +640,30 @@ cudaError_t launch_run(const RunLaunch& p, int storage, int acc, int compensated
 
 }  // namespace
 
-// Both return the cudaError_t of the launch (0 on success).  storage and acc
-// are TypeCodes of w's and the factors' types, one of the four pairs above;
-// compensated selects the Kahan recurrence; group_cols is the width of a
-// column group in elements.
-
-// All buckets of a level: tiles is the [n_records, 8] int32 tile table; the
-// indices read rows of src, which is w or a buffer of w's type and batch.
-extern "C" int fd_level_gather_reduce(void* w, const void* src, const void* idx_pool,
-                                      const void* fac_pool, const void* tiles, int n_records,
-                                      long long batch, int storage, int acc, int compensated,
-                                      long long group_cols, void* stream) {
-  if (tiles == nullptr || src == nullptr) return cudaErrorInvalidValue;
-  const Launch p{w, src, idx_pool, fac_pool, tiles, Tile{}, n_records,
-                 batch, group_cols, static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(launch(p, storage, acc, compensated));
-}
-
 // A run of levels, in order, on one stream: row i of the host table,
 // [n_launches, 8] int64, is one launch.  A row whose field 5 is 0 launches
-// one level, fd_level_gather_reduce's launch with src = w, from (idx_pool,
-// fac_pool, tiles, n_records, group_cols, 0, 0, 0).  A row whose field 5 is
-// n >= 1 launches a column run of n levels from (rows, row_fac, level_rows,
-// n_rows, lanes_log2 | threads << 8, n, extra_idx, extra_fac).  The first
-// failed launch stops the run: its cudaError_t is returned and its row
-// written to *failed.
-extern "C" int fd_levels_gather_reduce(void* w, const long long* table, int n_launches,
-                                       long long batch, int storage, int acc, int compensated,
-                                       void* stream, int* failed) {
+// one level, all its buckets, from (idx_pool, fac_pool, tiles, n_records,
+// group_cols, 0, 0, 0): tiles is the level's [n_records, 8] int32 tile
+// table, group_cols the width of a column group in elements, and the
+// indices read rows of src, which is w or a buffer of w's type and batch.
+// A row whose field 5 is n >= 1 launches a column run of n levels from
+// (rows, row_fac, level_rows, n_rows, lanes_log2 | threads << 8, n,
+// extra_idx, extra_fac); it reads w itself, and src must be w.  storage and
+// acc are TypeCodes of w's and the factors' types, one of the four pairs
+// above; compensated selects the Kahan recurrence.  Returns the
+// cudaError_t of the first failed launch (0 on success), which stops the
+// run, and writes its row to *failed.
+extern "C" int fd_levels_gather_reduce(void* w, const void* src, const long long* table,
+                                       int n_launches, long long batch, int storage, int acc,
+                                       int compensated, void* stream, int* failed) {
   for (int i = 0; i < n_launches; ++i) {
     const long long* row = table + 8 * static_cast<int64_t>(i);
     cudaError_t err;
     if (row[5] == 0) {
-      const Launch p{w, w, reinterpret_cast<const void*>(row[0]),
+      const Launch p{w, src, reinterpret_cast<const void*>(row[0]),
                      reinterpret_cast<const void*>(row[1]), reinterpret_cast<const void*>(row[2]),
-                     Tile{}, static_cast<int>(row[3]), batch, row[4],
-                     static_cast<cudaStream_t>(stream)};
-      err = p.tiles == nullptr ? cudaErrorInvalidValue : launch(p, storage, acc, compensated);
+                     static_cast<int>(row[3]), batch, row[4], static_cast<cudaStream_t>(stream)};
+      err = src == nullptr ? cudaErrorInvalidValue : launch(p, storage, acc, compensated);
     } else {
       const RunLaunch p{w, reinterpret_cast<const void*>(row[2]),
                         reinterpret_cast<const void*>(row[0]),
@@ -682,7 +672,7 @@ extern "C" int fd_levels_gather_reduce(void* w, const long long* table, int n_la
                         reinterpret_cast<const void*>(row[7]), static_cast<int>(row[5]),
                         static_cast<int>(row[4] & 0xff), static_cast<int>(row[4] >> 8), batch,
                         static_cast<cudaStream_t>(stream)};
-      err = launch_run(p, storage, acc, compensated);
+      err = src != w ? cudaErrorInvalidValue : launch_run(p, storage, acc, compensated);
     }
     if (err != cudaSuccess) {
       *failed = i;
@@ -690,22 +680,4 @@ extern "C" int fd_levels_gather_reduce(void* w, const long long* table, int n_la
     }
   }
   return 0;
-}
-
-// One bucket: idx [n_op, arity, count], fac [arity, count], rows from start;
-// a block takes `pieces` (1, 2, 4 or 8) pieces of an item of one row tile.
-extern "C" int fd_bucket_gather_reduce(void* w, const void* idx, const void* fac, int n_op,
-                                       int arity, int count, long long batch, long long start,
-                                       int storage, int acc, int compensated, int pieces,
-                                       long long group_cols, void* stream) {
-  if (n_op < 1 || n_op > kMaxOp || arity < 1 || count < 1 || start < 0 ||
-      start + count > INT32_MAX || pieces < 1 || pieces > kItemPieces ||
-      kItemPieces % pieces != 0) {
-    return cudaErrorInvalidValue;
-  }
-  const Tile single{static_cast<int32_t>(start), 0, arity, n_op, 0, 0, count, pieces << 16};
-  const Launch p{w, w, idx, fac, nullptr, single,
-                 (count + kRows - 1) / kRows * (kItemPieces / pieces),
-                 batch, group_cols, static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(launch(p, storage, acc, compensated));
 }

@@ -9,7 +9,7 @@ powers (the reference's order), then any plain product or power.
 - ``SumPlan``: gather, scale, ``index_add_`` into the level's rows
 - ``SumBucket`` / ``FusedBucket``, and every ``ProdPlan`` of arity and
   ``PowerPlan`` of exponent ``1..MAX_N_OP``: all in one launch of the
-  gather-reduce kernel a level (``level_gather_reduce``); a product of
+  gather-reduce kernel a level (``kernels.pack_level``); a product of
   arity k is the bucket of one term and ``n_op = k``, a power of n the
   bucket of one term of its row repeated n times (``level_buckets``)
 - a ``ProdPlan`` or ``PowerPlan`` outside that range (no configuration of
@@ -21,18 +21,20 @@ package computes a product ``(w[i0] * w[i1] * ...) * fac`` and a power
 ulps of the accumulation type.
 
 On CUDA with the kernel, a pass launches from a *launch plan*, built at the
-first pass of each batch size and kept (``launch_plan``): the levels are cut
-at build time into *runs*, the longest sequences of consecutive levels that
-only launch (no CSR sum, no plain product or power), and each run is one C
-call that issues its levels' launches in order (``kernels.levels_gather_reduce``),
+first pass of each batch size and kept (``launch_plan``): at build time the
+pass is cut into steps (``cut_runs``), the Python part of a level (its CSR
+sum, before the level's launch, and its plain products and powers, after
+it) a step of its own and each *run* of level launches between two such
+parts one C call that issues them in order (``kernels.levels_gather_reduce``),
 from a host table of their records, column groups and tables prepared for
 that batch, with none of the per-launch checks, which the build and the plan
 made once.  Within a run, each stretch of two or more consecutive levels
 that are thin at that batch (``kernels.is_thin``: few bytes, short rows) is
 one launch of the column-run kernel, whose blocks each carry a slice of the
-batch's columns through every level of the stretch.  A level outside every
-run runs as below.  Each launch computes what ``level_gather_reduce`` would,
-in the same order and arithmetic, so the values are the same bit for bit.
+batch's columns through every level of the stretch.  Each launch computes
+what ``level_gather_reduce_plain`` computes, in the same order and
+arithmetic; on the CPU, or with ``kernel=False``, every level runs through
+that plain version (``_eval_levels``), the reference.
 
 Each level runs in a profiler scope ``gL{NN}``, and within it the CSR sum
 in ``csr``, the level's one launch in ``fb{n}`` (``sb{n}`` when it holds
@@ -40,11 +42,9 @@ only sum buckets; ``n`` buckets and plans), each plain product in
 ``prod{arity}`` and each plain power in ``pow{n}``: the JAX package's
 ``jax.named_scope`` names, read by ``benchmarks/profile_pass.py``.  A scope
 is entered only while a profiler runs or a capture is open
-(``utils.profiling.scope``); in a capture the scopes name the launches of
-the graph's manifest (``gL05/fb8``).  A run's C call runs in the scope
-``levels``, and its launches join a manifest under their levels' paths, as
-those of the level-by-level path do, a column run under its stretch's
-(``gL04-gL298/run``).
+(``utils.profiling.scope``).  A run's C call runs in the scope ``levels``,
+and its launches join a capture's manifest under their levels' paths
+(``gL05/fb8``), a column run under its stretch's (``gL04-gL298/run``).
 
 JAX's evaluator was functional (``dynamic_update_slice`` on an immutable
 buffer); this one writes each plan's rows of ``w`` in place.  That is safe
@@ -62,7 +62,7 @@ eager.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -235,23 +235,23 @@ def _upload(lowered: LoweredGraph, device, fac_dtype) -> List[_Level]:
     return levels
 
 
-def _only_launches(lvl: _Level) -> bool:
-    return lvl.csr is None and not lvl.prods and not lvl.pows
-
-
 def cut_runs(levels: List[_Level]) -> List[Union[_Level, List[_Level]]]:
-    """A pass's steps in order: each run, a list of the consecutive levels
-    that only launch (``_Level.tables``, no CSR sum, no plain product or
-    power), as long as it goes; each other level alone.  A level with
-    nothing to do is left out."""
+    """A pass's steps in order, level by level: a level's CSR sum, then its
+    launch, then its plain products and powers.  Each Python part is a step
+    of its own, a ``_Level`` without tables; the launches between two such
+    parts form a run, a list of the levels that launch (``_Level.tables``).
+    No plan of a level reads a row that the level writes
+    (``check_lowered``), so a level's parts may run in any order."""
     steps: List[Union[_Level, List[_Level]]] = []
     for lvl in levels:
-        if not _only_launches(lvl):
-            steps.append(lvl)
-        elif lvl.tables is not None:
+        if lvl.csr is not None:
+            steps.append(replace(lvl, tables=None, prods=[], pows=[]))
+        if lvl.tables is not None:
             if not steps or not isinstance(steps[-1], list):
                 steps.append([])
             steps[-1].append(lvl)
+        if lvl.prods or lvl.pows:
+            steps.append(replace(lvl, csr=None, tables=None))
     return steps
 
 
@@ -279,7 +279,9 @@ def _eval_levels(levels: List[_Level], w: torch.Tensor, acc_dtype=None,
     computes in ``acc_dtype`` and stores back at ``w.dtype``.
     ``compensated`` switches every bucket reduction to Kahan summation.
     ``kernel=False`` runs the buckets through the plain version on any
-    device (the reference the kernel is checked against)."""
+    device (the reference the kernel is checked against).  An evaluator on
+    CUDA with the kernel passes only levels without tables here (the
+    Python parts of ``cut_runs``)."""
     a = acc_dtype or w.dtype
     level_op = level_gather_reduce if kernel else level_gather_reduce_plain
     for lvl in levels:
@@ -369,7 +371,8 @@ class Evaluator:
         self.eager_zero_rows = torch.as_tensor(np.unique(eager), device=device) \
             if eager.size else None
         self.levels = _upload(lowered, device, acc_dtype or dtype)
-        # the launch path: the levels cut into runs, checked once here
+        # the launch path: the pass cut into runs and Python parts, checked
+        # once here
         self.steps = None
         if kernel and device.type == "cuda":
             self.steps = cut_runs(self.levels)
@@ -425,8 +428,8 @@ class Evaluator:
         type) in place and return it.  On CUDA with the kernel the pass
         launches from the launch plan of ``w``'s batch (``launch_plan``,
         built at the first pass of that batch and kept): each run one
-        ``levels_gather_reduce`` on the current stream, each other level
-        as ``_eval_levels``; elsewhere every level runs through
+        ``levels_gather_reduce`` on the current stream, each Python part of
+        a level through ``_eval_levels``; elsewhere every level runs through
         ``_eval_levels``."""
         if self.steps is None:
             return _eval_levels(self.levels, w, self.acc_dtype, self.compensated,

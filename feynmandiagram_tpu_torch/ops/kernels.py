@@ -11,24 +11,24 @@ and the ``FusedBucket`` primitive of ``sum_mode='fused'`` (``n_op <= 4``);
 a ``ProdPlan`` or ``PowerPlan`` of up to 4 operands is a bucket of one term
 (``ops/evaluator.py::plan_bucket``).
 
-``level_gather_reduce`` does that for all buckets of a level in one launch,
-from tables that ``pack_level`` packs once and uploads: no bucket of a level
-reads a row that another one writes (``ops/evaluator.py::check_lowered``), so
-they may run at once.  Given ``src``, a level reads its rows from that buffer
-instead of ``w`` (the halo of a graph-sharded level,
-``parallel/graph_shard.py``) and writes them to ``w``.
-``bucket_gather_reduce`` is the one-bucket call of the same kernel.
-``levels_gather_reduce`` launches a run of levels from one C call, from a
-``LevelRun`` that ``plan_run`` prepared once for a batch size: the launches
-of ``level_gather_reduce`` on each, in order, with none of its checks,
-except that each *stretch* of two or more consecutive thin levels is one
-launch of a second kernel, the *column run* (``pack_column_run``), whose
-blocks each carry a slice of the batch's columns through every level of the
-stretch; ``column_run_gather_reduce_plain`` is its plain version.  On a
-CUDA tensor either wrapper launches the hand-written CUDA kernel in
-``csrc/bucket_gather_reduce.cu``; on a CPU tensor it runs its plain PyTorch
-version.  Nothing falls back: a CUDA build or launch failure raises.
-The kernel is built at first use (``ops/build.py``).
+A level's buckets run in one launch, from tables that ``pack_level`` packs
+once and uploads: no bucket of a level reads a row that another one writes
+(``ops/evaluator.py::check_lowered``), so they may run at once.  Given
+``src``, a level reads its rows from that buffer instead of ``w`` (the halo
+of a graph-sharded level, ``parallel/graph_shard.py``) and writes them to
+``w``.  Every launch on the card goes through ``levels_gather_reduce``: one
+C call that launches a ``LevelRun``, a run of levels prepared once for a
+batch size (``plan_run``), each level's launch in order, except that each
+*stretch* of two or more consecutive thin levels is one launch of a second
+kernel, the *column run* (``pack_column_run``), whose blocks each carry a
+slice of the batch's columns through every level of the stretch
+(``column_run_gather_reduce_plain`` is its plain version).
+``level_gather_reduce`` checks one level's tables and launches the run of
+that level alone; ``bucket_gather_reduce`` packs one bucket as a level and
+launches it so.  On a CUDA tensor the wrappers launch the hand-written CUDA
+kernels in ``csrc/bucket_gather_reduce.cu``; on a CPU tensor they run their
+plain PyTorch versions.  Nothing falls back: a CUDA build or launch failure
+raises.  The kernels are built at first use (``ops/build.py``).
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from . import build
-from ..utils.profiling import launched, launched_run, scope
+from ..utils.profiling import launched_run, scope
 
 MAX_N_OP = 4
 _OFF = contextlib.nullcontext()
@@ -54,9 +54,9 @@ CUDA_DTYPE_PAIRS = ((torch.float32, torch.float32), (torch.float64, torch.float6
                     (torch.float32, torch.float64), (torch.bfloat16, torch.float32))
 
 
-# the kernel's geometry (csrc/bucket_gather_reduce.cu): output rows of a row
-# tile, the int32 columns of a record of the tile table on the device, and
-# those of a bucket's descriptor on the host
+# output rows of a row tile (csrc/bucket_gather_reduce.cu), the int32 columns
+# of a record of the tile table on the device, and those of a bucket's
+# descriptor on the host
 TILE_ROWS = 8
 TILE_FIELDS = ("dst", "rows", "arity", "n_op", "idx", "fac", "count", "span")
 DESC_FIELDS = ("start", "count", "arity", "n_op", "idx_off", "fac_off", "first_tile")
@@ -71,9 +71,8 @@ DESC_FIELDS = ("start", "count", "arity", "n_op", "idx_off", "fac_off", "first_t
 # TARGET_BLOCKS blocks.  Items run column group by column group; a group is
 # as wide as keeps the rows that the launch touches inside L2_GROUP_BYTES, so
 # that a row gathered by several buckets is fetched from memory once.  The
-# arity limits of ``_record_width``, TARGET_BLOCKS and L2_GROUP_BYTES come
-# from the sweep of ``chip_smoke.py`` (its ``geometry:`` lines; PERF.md has
-# the numbers).
+# arity limits of ``_record_width``, TARGET_BLOCKS and L2_GROUP_BYTES were
+# set by a sweep on the card; a sweep patches these constants.
 PIECE_BYTES = 32 * 16
 ITEM_PIECES = 8
 RECORD_WIDTHS = (4, 2, 1)
@@ -98,23 +97,11 @@ RUN_GATHERS = 4
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    fn = lib.fd_bucket_gather_reduce
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_void_p]
-    fn = lib.fd_level_gather_reduce
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_void_p]
     fn = lib.fd_levels_gather_reduce
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
 
 
 def on_device(device: torch.device):
@@ -212,22 +199,17 @@ def bucket_gather_reduce_plain(w: torch.Tensor, idx: torch.Tensor, fac: torch.Te
 def bucket_gather_reduce(w: torch.Tensor, idx: torch.Tensor, fac: torch.Tensor,
                          start: int, *, compensated: bool = False,
                          acc_dtype: Optional[torch.dtype] = None,
-                         chunk_rows: Optional[int] = None,
-                         geometry: Optional[Tuple[int, int]] = None) -> None:
+                         chunk_rows: Optional[int] = None) -> None:
     """Write ``sum_a fac[a, c] * prod_k w[idx[k, a, c]]`` into rows
     ``start .. start + count`` of ``w``.
 
-    A CUDA ``w`` launches the kernel on the current stream: it reads ``w``
-    in its storage type, computes in ``acc_dtype or w.dtype`` (a pair of
-    ``CUDA_DTYPE_PAIRS``, with ``fac`` in the accumulation type) and rounds
-    once to ``w.dtype`` on store; ``chunk_rows`` does not apply, and
-    ``geometry`` (the widest record, one of ``RECORD_WIDTHS``, and the bytes
-    of ``w`` that a column group may touch; by default the widest that leaves
-    ``TARGET_BLOCKS`` blocks, and ``L2_GROUP_BYTES``) changes the order of the
-    work and not the result.  A CPU
-    ``w`` runs ``bucket_gather_reduce_plain``.  Any other device raises.
-    ``bucket_gather_reduce.launches`` counts kernel launches, replays of a
-    captured one included (``utils.profiling.launched``).
+    A CUDA ``w`` packs the bucket as a level of one bucket (``pack_level``,
+    through the host) and launches it on the current stream
+    (``level_gather_reduce``): the kernel reads ``w`` in its storage type,
+    computes in ``acc_dtype or w.dtype`` (a pair of ``CUDA_DTYPE_PAIRS``,
+    with ``fac`` in the accumulation type) and rounds once to ``w.dtype`` on
+    store; ``chunk_rows`` does not apply.  A CPU ``w`` runs
+    ``bucket_gather_reduce_plain``.  Any other device raises.
     """
     if w.device.type == "cpu":
         bucket_gather_reduce_plain(w, idx, fac, start, compensated=compensated,
@@ -237,23 +219,9 @@ def bucket_gather_reduce(w: torch.Tensor, idx: torch.Tensor, fac: torch.Tensor,
         raise ValueError(f"bucket_gather_reduce runs on cuda or cpu tensors, "
                          f"not {w.device.type}")
     _check(w, idx, fac, start)
-    storage, acc = cuda_type_codes(w.dtype, fac.dtype, acc_dtype)
-    lib = build.load("bucket_gather_reduce", _bind)
-    n_op, arity, count = idx.shape
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = lib.fd_bucket_gather_reduce(
-            w.data_ptr(), idx.data_ptr(), fac.data_ptr(), n_op, arity, count,
-            w.shape[1], start, storage, acc, int(compensated),
-            _bucket_pieces(w, arity, count, geometry),
-            _group_cols(w, (n_op * arity + 1) * count, geometry), stream)
-    if err != 0:
-        raise RuntimeError(f"bucket_gather_reduce launch failed: cudaError {err}")
-    launched(bucket_gather_reduce)
-
-
-bucket_gather_reduce.launches = 0
-bucket_gather_reduce.symbol = "gather_reduce_kernel"
+    cuda_type_codes(w.dtype, fac.dtype, acc_dtype)
+    level_gather_reduce(w, pack_level([(idx.cpu(), fac.cpu(), start)], w.device, fac.dtype),
+                        compensated=compensated, acc_dtype=acc_dtype)
 
 
 def _items_across(w: torch.Tensor) -> int:
@@ -268,24 +236,10 @@ def _record_width(arity: int, widest: int) -> int:
     return min(widest, 2) if arity < 16 else 1
 
 
-def _bucket_pieces(w: torch.Tensor, arity: int, count: int,
-                   geometry: Optional[Tuple[int, int]]) -> int:
-    """The record width for a one-bucket launch: the widest that leaves
-    TARGET_BLOCKS blocks, or the one that ``geometry`` names."""
-    tiles = -(-count // TILE_ROWS) * _items_across(w)
-    for widest in RECORD_WIDTHS if geometry is None else (geometry[0],):
-        width = _record_width(arity, widest)
-        if tiles * (ITEM_PIECES // width) >= TARGET_BLOCKS:
-            break
-    return width
-
-
-def _group_cols(w: torch.Tensor, rows_touched: int,
-                geometry: Optional[Tuple[int, int]]) -> int:
+def _group_cols(w: torch.Tensor, rows_touched: int) -> int:
     """The width of a column group in columns of ``w``, for a launch that
     touches ``rows_touched`` rows (the kernel rounds it to whole items)."""
-    budget = L2_GROUP_BYTES if geometry is None else geometry[1]
-    return max(budget // (rows_touched * w.element_size()), 1)
+    return max(L2_GROUP_BYTES // (rows_touched * w.element_size()), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -326,12 +280,11 @@ class LevelTables:
     column: "ColumnRows"
     column_runs: Dict[tuple, "ColumnRun"] = field(default_factory=dict)
 
-    def records_for(self, w: torch.Tensor,
-                    geometry: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    def records_for(self, w: torch.Tensor) -> torch.Tensor:
         """The tile table for a launch on ``w``: the widest records that
-        leave TARGET_BLOCKS blocks, or those that ``geometry`` names."""
+        leave TARGET_BLOCKS blocks."""
         across = _items_across(w)
-        for widest in RECORD_WIDTHS if geometry is None else (geometry[0],):
+        for widest in RECORD_WIDTHS:
             table = self.records[widest]
             if table.shape[0] * across >= TARGET_BLOCKS:
                 break
@@ -499,7 +452,6 @@ def level_gather_reduce_plain(w: torch.Tensor, tables: LevelTables, *,
 def level_gather_reduce(w: torch.Tensor, tables: LevelTables, *, compensated: bool = False,
                         acc_dtype: Optional[torch.dtype] = None,
                         chunk_rows: Optional[int] = None,
-                        geometry: Optional[Tuple[int, int]] = None,
                         src: Optional[torch.Tensor] = None) -> None:
     """Run every bucket of ``tables`` on ``w``, in place.
 
@@ -507,13 +459,14 @@ def level_gather_reduce(w: torch.Tensor, tables: LevelTables, *, compensated: bo
     device, dtype and batch), else of ``w``; the outputs go to ``w``.
     Every call checks that the level's rows lie inside ``w`` and its indices
     inside the buffer it reads.  A CUDA ``w`` launches the kernel once, on
-    the current stream, with the types, rounding and ``geometry`` of
-    ``bucket_gather_reduce``; reading ``w`` itself, the caller guarantees
+    the current stream, with the types and rounding of
+    ``bucket_gather_reduce``: a ``LevelRun`` of this level alone, through
+    ``levels_gather_reduce``; reading ``w`` itself, the caller guarantees
     that no bucket reads a destination row of the level
     (``check_lowered``).  A CPU ``w`` runs ``level_gather_reduce_plain``.
-    Any other device raises.  ``level_gather_reduce.launches`` counts kernel
-    launches, replays of a captured one included (``utils.profiling.launched``);
-    ``level_gather_reduce.symbol`` is the kernel's name."""
+    Any other device raises.  ``level_gather_reduce.launches`` counts every
+    launch of the kernel, whichever wrapper issued it, replays of a captured
+    one included; ``level_gather_reduce.symbol`` is the kernel's name."""
     if w.device.type == "cpu":
         level_gather_reduce_plain(w, tables, compensated=compensated, acc_dtype=acc_dtype,
                                   chunk_rows=chunk_rows, src=src)
@@ -523,17 +476,10 @@ def level_gather_reduce(w: torch.Tensor, tables: LevelTables, *, compensated: bo
                          f"not {w.device.type}")
     _check_level(w, tables, src)
     _check_on(w.device, tables)
-    storage, acc = cuda_type_codes(w.dtype, tables.fac.dtype, acc_dtype)
-    idx, fac, records, n_records, group_cols = level_row(w, tables, geometry)
-    lib = build.load("bucket_gather_reduce", _bind)
+    run = LevelRun(w.shape[1], np.array([level_row(w, tables) + (0, 0, 0)], np.int64), ("",),
+                   cuda_type_codes(w.dtype, tables.fac.dtype, acc_dtype), compensated)
     with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = lib.fd_level_gather_reduce(
-            w.data_ptr(), (w if src is None else src).data_ptr(), idx, fac, records,
-            n_records, w.shape[1], storage, acc, int(compensated), group_cols, stream)
-    if err != 0:
-        raise RuntimeError(f"level_gather_reduce launch failed: cudaError {err}")
-    launched(level_gather_reduce)
+        levels_gather_reduce(w, run, torch.cuda.current_stream(w.device).cuda_stream, src=src)
 
 
 level_gather_reduce.launches = 0
@@ -553,15 +499,14 @@ def check_tables(tables: LevelTables, rows: int, device: torch.device) -> None:
     _check_on(device, tables)
 
 
-def level_row(w: torch.Tensor, tables: LevelTables,
-              geometry: Optional[Tuple[int, int]] = None) -> Tuple[int, int, int, int, int]:
+def level_row(w: torch.Tensor, tables: LevelTables) -> Tuple[int, int, int, int, int]:
     """What a level's launch on ``w`` takes of its tables, in the order of a
     row of ``LevelRun.table`` (``RUN_FIELDS``): the pools' and the tile
     table's addresses (``records_for``), its records and the column group's
     width (``_group_cols``).  Only ``w``'s batch and element size count."""
-    records = tables.records_for(w, geometry)
+    records = tables.records_for(w)
     return (tables.idx.data_ptr(), tables.fac.data_ptr(), records.data_ptr(),
-            records.shape[0], _group_cols(w, tables.rows_touched, geometry))
+            records.shape[0], _group_cols(w, tables.rows_touched))
 
 
 # ---------------------------------------------------------------------------
@@ -742,7 +687,8 @@ class LevelRun:
     order, on the host: a level's launch (``level_row``, then ``levels`` 0)
     or a column run's over ``levels`` levels (``column_run_row``);
     ``paths`` the launches' scope paths (``gL05/fb8`` for a level,
-    ``gL04-gL298/run`` for a column run), which name them in a capture's
+    ``gL04-gL298/run`` for a column run, empty for a level launched alone,
+    which the scopes open around it name), which name them in a capture's
     manifest and in errors; ``codes`` the (storage, accumulation) type codes
     and ``compensated`` Kahan summation; ``column_runs`` the column runs'
     tables.  The levels' tables that the rows point into, the column runs'
@@ -764,8 +710,7 @@ class LevelRun:
         self.launches = tuple((column_run_gather_reduce if n else level_gather_reduce, path,
                                max(n, 1)) for n, path in zip(covered, self.paths))
         level_launches = sum(1 for n in covered if n == 0)
-        self.counts = ((levels_gather_reduce, "launches", level_launches),
-                       (level_gather_reduce, "launches", level_launches),
+        self.counts = ((level_gather_reduce, "launches", level_launches),
                        (column_run_gather_reduce, "launches", sum(1 for n in covered if n)),
                        (column_run_gather_reduce, "levels", sum(covered)))
 
@@ -827,17 +772,19 @@ def plan_run(w: torch.Tensor, levels: Sequence[LevelTables], paths: Sequence[str
                     tuple(names), codes, compensated, tuple(runs))
 
 
-def levels_gather_reduce(w: torch.Tensor, run: LevelRun, stream: int) -> None:
+def levels_gather_reduce(w: torch.Tensor, run: LevelRun, stream: int,
+                         src: Optional[torch.Tensor] = None) -> None:
     """Launch every level of ``run`` on ``w`` in place, in order, on
-    ``stream`` (a raw ``cudaStream_t``), from one C call: each level's
-    launch the one ``level_gather_reduce(w, tables)`` makes, with none of
-    its checks, each column run one launch of its stretch.  ``w`` must be a
+    ``stream`` (a raw ``cudaStream_t``), from one C call, with none of
+    ``level_gather_reduce``'s checks: each level's launch reading its rows
+    from ``src`` where it is given (a buffer of ``w``'s dtype and batch),
+    else from ``w``, each column run one launch of its stretch, which reads
+    ``w`` (the C call refuses a column run with ``src``).  ``w`` must be a
     contiguous CUDA buffer of the shape, dtype and device that ``run`` was
     planned for, on the current device.  The C call runs in the profiler
     scope ``levels``; a failed launch raises, naming its level or stretch.
     Outside a capture ``levels_gather_reduce.calls`` counts the calls,
-    ``levels_gather_reduce.launches`` the level launches they issued (which
-    ``level_gather_reduce.launches`` counts too),
+    ``level_gather_reduce.launches`` the level launches they issued,
     ``column_run_gather_reduce.launches`` their column runs and
     ``column_run_gather_reduce.levels`` the levels those computed; in a
     capture each launch joins the manifest under its path
@@ -845,12 +792,13 @@ def levels_gather_reduce(w: torch.Tensor, run: LevelRun, stream: int) -> None:
     kernel's counters."""
     lib = build.load("bucket_gather_reduce", _bind)
     with scope("levels"):
-        err = lib.fd_levels_gather_reduce(w.data_ptr(), *run._args, stream, run._failed_at)
+        err = lib.fd_levels_gather_reduce(w.data_ptr(), (w if src is None else src).data_ptr(),
+                                          *run._args, stream, run._failed_at)
     if err != 0:
-        raise RuntimeError(f"level_gather_reduce launch failed at level "
-                           f"{run.paths[run._failed.value]}: cudaError {err}")
+        path = run.paths[run._failed.value]
+        raise RuntimeError(f"level_gather_reduce launch failed{' at level ' if path else ''}"
+                           f"{path}: cudaError {err}")
     launched_run(levels_gather_reduce, run.launches, run.counts)
 
 
 levels_gather_reduce.calls = 0
-levels_gather_reduce.launches = 0

@@ -131,15 +131,14 @@ def launched_run(launcher: Callable, launches, counts) -> None:
     grows by one and each of ``counts``, ``(owner, attribute, n)``, the
     launcher's and the kernels' counters, by its ``n``.  In a capture each
     launch joins the graph's manifest as ``launched`` keeps it, its path
-    under the scopes open there."""
+    under the scopes open there (an empty path: theirs alone)."""
     if _recording is None:
         launcher.calls += 1
         for owner, name, n in counts:
             setattr(owner, name, getattr(owner, name) + n)
     else:
-        under = "".join(f"{name}/" for name in _path)
-        _recording.extend(Launch(kernel.symbol, under + path, kernel, levels)
-                          for kernel, path, levels in launches)
+        _recording.extend(Launch(kernel.symbol, "/".join(_path + [path] if path else _path),
+                                 kernel, levels) for kernel, path, levels in launches)
 
 
 @contextlib.contextmanager

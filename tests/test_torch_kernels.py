@@ -141,9 +141,9 @@ def test_non_cpu_non_cuda_tensor_raises_instead_of_plain():
 
 def test_cpu_path_does_not_count_launches():
     w, idx, fac = _good()
-    before = bucket_gather_reduce.launches
+    before = kernels.level_gather_reduce.launches
     bucket_gather_reduce(w, idx, fac, 8)
-    assert bucket_gather_reduce.launches == before
+    assert kernels.level_gather_reduce.launches == before
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -352,8 +352,8 @@ def test_tile_records_cover_every_output_once(widest, batch, vec, group_cols):
 
 @pytest.mark.parametrize("batch,dtype", [(4096, F32), (250, F32), (16384, BF16), (512, F64)])
 def test_record_width_leaves_enough_blocks(batch, dtype):
-    """The wrappers take the widest records that leave TARGET_BLOCKS blocks,
-    and one-piece records where no width does; a geometry names its own."""
+    """A launch takes the widest records that leave TARGET_BLOCKS blocks,
+    and one-piece records where no width does."""
     buckets, rows = _level_case(4)
     tables = pack_level(buckets, "cpu", F64)
     w = torch.empty((rows, batch), dtype=dtype)
@@ -363,14 +363,9 @@ def test_record_width_leaves_enough_blocks(batch, dtype):
     widths = [k for k in kernels.RECORD_WIDTHS
               if tables.records[k].shape[0] * across >= kernels.TARGET_BLOCKS]
     assert table is tables.records[max(widths) if widths else 1]
-    assert tables.records_for(w, (2, 2 ** 20)) is tables.records[2]
-    for arity, count in ((1, 4920), (2, 8), (16, 96)):
-        got = kernels._bucket_pieces(w, arity, count, None)
-        assert got in kernels.RECORD_WIDTHS and (arity < 16 or got == 1)
-        assert kernels._bucket_pieces(w, arity, count, (4, 1)) == kernels._record_width(arity, 4)
-    assert kernels._group_cols(w, 1000, None) == max(
+    assert kernels._group_cols(w, 1000) == max(
         kernels.L2_GROUP_BYTES // (1000 * w.element_size()), 1)
-    assert kernels._group_cols(w, 10 ** 9, None) == 1
+    assert kernels._group_cols(w, 10 ** 9) == 1
 
 
 @pytest.mark.parametrize("bad", ["empty", "n_op_5", "fac_shape", "no_rows", "negative_start"])

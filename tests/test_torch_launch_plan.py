@@ -1,13 +1,14 @@
 """The eager pass's launch plan (``ops.evaluator.launch_plan``), on the CPU.
 
-On the card a pass launches each run of levels (the longest sequences of
-consecutive levels that only launch) from one C call,
-``kernels.levels_gather_reduce``, from a host table that ``kernels.plan_run``
-prepared once for the batch size: a row a launch, each level's own launch
-or, for each stretch of two or more consecutive thin levels, one column run
-(``kernels.pack_column_run``).  The card runs the C loop; here the library
-is a stand-in that records its calls, or that runs each row of the table
-through ``level_gather_reduce_plain`` or ``column_run_gather_reduce_plain``.
+On the card a pass launches each run of levels (the level launches between
+two Python parts of levels: a CSR sum, a plain product or power) from one C
+call, ``kernels.levels_gather_reduce``, from a host table that
+``kernels.plan_run`` prepared once for the batch size: a row a launch, each
+level's own launch or, for each stretch of two or more consecutive thin
+levels, one column run (``kernels.pack_column_run``).  The card runs the C
+loop; here the library is a stand-in that records its calls, or that runs
+each row of the table through ``level_gather_reduce_plain`` (reading the
+buffer ``src`` that the call names) or ``column_run_gather_reduce_plain``.
 Held here:
 
 - each row of a plan, for order-4 Gamma4 and config 4 (fused) at batches
@@ -19,19 +20,23 @@ Held here:
   gL21-gL36), a level launch's row holds the pools,
   the tile table that ``records_for`` picks and its records, the column
   group of ``_group_cols``, and the type codes;
-- the runs are cut exactly at the levels that hold a CSR sum or a plan
-  outside the kernel (sum_mode 'csr', a ``ProdPlan`` and a ``PowerPlan`` of
-  5 operands), and Gamma4's and config 4's fused levels are one run;
+- the runs are cut exactly at the Python parts of levels (sum_mode 'csr':
+  a CSR sum before each level's launch; a ``ProdPlan`` and a ``PowerPlan``
+  of 5 operands after it), every level's tables are in a run, and Gamma4's
+  and config 4's fused levels are one run;
 - in a capture the launcher keeps one ``Launch`` a launch: ``gLNN/fb{n}``
   a level, the list the level-by-level path keeps where no level is thin,
-  and ``gLNN-gLMM/run`` a column run; outside one it counts its calls, its
-  level launches, its column runs and their levels, as do the kernels'
-  counters;
+  and ``gLNN-gLMM/run`` a column run, and a level launched alone the path
+  of the scopes open around it; outside one it counts its calls, and the
+  kernels' counters their launches and the column runs' levels;
+- a one-level run reading a halo (``src``) equals
+  ``level_gather_reduce_plain(src=halo)`` bit for bit;
 - the pass through the plan, with the stand-in running the rows, equals the
   level-by-level pass bit for bit (the GV series at total order 4 among the
-  cases: level launches and a column run in one run), builds one plan a
-  batch size and keeps the newest ``PLANS_KEPT``; a failed launch names its
-  level or stretch;
+  cases: level launches and a column run in one run; Gamma4 at order 2
+  with CSR sums, every level's launch planned), builds one plan a batch
+  size and keeps the newest ``PLANS_KEPT``; a failed launch names its level
+  or stretch;
 - a prepared leaf launch (``leaf_eval.LeafLaunch``) checks its operands
   once, and a call passes its three addresses and the stream with the
   arguments it prepared.
@@ -171,7 +176,7 @@ def test_plan_rows_are_what_each_level_launch_takes(lowered, case, batch):
             t = ev.levels[i].tables
             records = t.records_for(w)
             want = [t.idx.data_ptr(), t.fac.data_ptr(), records.data_ptr(), records.shape[0],
-                    kernels._group_cols(w, t.rows_touched, None), 0, 0, 0]
+                    kernels._group_cols(w, t.rows_touched), 0, 0, 0]
             assert row == want, (mode, i)
             assert row[4] == max(kernels.L2_GROUP_BYTES // (t.rows_touched * 4), 1)
             k += 1
@@ -185,49 +190,63 @@ def test_runs_are_cut_at_levels_that_run_python(lowered, case):
     steps = cut_runs(ev.levels)
     index = {id(lvl): li for li, lvl in enumerate(ev.levels)}
 
-    def runs_python(li):
+    def plain_plans(li):
         lvl = low.levels[li]
-        return lvl.sums is not None or any(not in_kernel(p) for p in
-                                           list(lvl.prods) + list(lvl.pows))
+        return any(not in_kernel(p) for p in list(lvl.prods) + list(lvl.pows))
 
-    # the steps in level order: a run's levels only launch, every other
-    # level runs its Python, and no two runs meet
-    order = [index[id(lvl)] for step in steps
-             for lvl in (step if isinstance(step, list) else [step])]
-    assert order == sorted(order)
-    assert sorted(order) == [li for li, lvl in enumerate(low.levels)
-                             if runs_python(li) or level_buckets(lvl)]
+    # every step in level order, each part of a level in its order: the CSR
+    # sum, the launch (in a run), the plain products and powers
+    parts = []
+    for step in steps:
+        if isinstance(step, list):
+            assert step and all(lvl.tables is not None for lvl in step)
+            parts += [(index[id(lvl)], 1) for lvl in step]
+        else:   # a Python part alone, a copy of its level without tables
+            assert step.tables is None
+            li = int(step.scope[2:])
+            assert step.scope == ev.levels[li].scope
+            assert (step.csr is None) != (not step.prods and not step.pows)
+            parts.append((li, 0 if step.csr is not None else 2))
+    want = [(li, part) for li, lvl in enumerate(low.levels)
+            for part, present in ((0, lvl.sums is not None), (1, bool(level_buckets(lvl))),
+                                  (2, plain_plans(li))) if present]
+    assert parts == want
     for a, b in zip(steps, steps[1:]):
         assert not (isinstance(a, list) and isinstance(b, list))
-    for step in steps:
-        for lvl in (step if isinstance(step, list) else [step]):
-            assert isinstance(step, list) != runs_python(index[id(lvl)])
     runs = [step for step in steps if isinstance(step, list)]
     if case in ("gamma4_o4", "config4_o4"):
         assert len(steps) == len(runs) == 1
         assert len(runs[0]) == sum(1 for lvl in low.levels if level_buckets(lvl))
     elif case == "gamma4_o2_csr":
-        assert any(not isinstance(step, list) for step in steps)
-        assert sum(len(run) for run in runs) == sum(
-            1 for li, lvl in enumerate(low.levels)
-            if not runs_python(li) and level_buckets(lvl))
-    else:   # level 0 holds the arity-5 product and the power of 5
-        assert len(steps) == 2 and steps[0] is ev.levels[0]
-        assert len(steps[1]) == 1 and steps[1][0] is ev.levels[1]
+        # a CSR sum before a level's launch: the level starts a run
+        starts = {index[id(run[0])] for run in runs}
+        with_sums = [li for li, lvl in enumerate(low.levels) if lvl.sums is not None]
+        assert with_sums and all(li in starts for li in with_sums
+                                 if level_buckets(low.levels[li]))
+        assert sum(len(run) for run in runs) == sum(1 for lvl in low.levels if level_buckets(lvl))
+        assert len(steps) - len(runs) == len(with_sums)
+    else:   # level 0 launches its in-kernel plans, then runs the arity-5
+        # product and the power of 5; level 1 launches
+        assert [type(step) for step in steps] == [list, evaluator_mod._Level, list]
+        assert steps[0] == [ev.levels[0]] and steps[2] == [ev.levels[1]]
+        assert (steps[1].prods, steps[1].pows) == (ev.levels[0].prods, ev.levels[0].pows)
 
 
 class _Lib:
     """The C library's stand-in: records each ``fd_levels_gather_reduce``
     call and, where ``buffers`` maps a buffer's address to it, runs each row
     of the table as ``level_gather_reduce_plain`` of the level whose pools it
-    points at, or as ``column_run_gather_reduce_plain`` of the column run
-    whose rows it points at (found in ``plans``, the plans of a pass);
+    points at, reading the buffer ``src`` (``src=`` where it is not ``w``),
+    or as ``column_run_gather_reduce_plain`` of the column run whose rows it
+    points at (found in ``plans``, the plans of a pass), which refuses a
+    ``src`` other than ``w`` with cudaError 1, as the library does; the
+    levels are those of ``levels`` (evaluator levels, or their tables);
     ``fail_at`` makes that row's launch fail with cudaError 700."""
 
     def __init__(self, levels=(), buffers=None, fail_at=None, plans=None):
         self.calls = []
-        self.tables = {lvl.tables.idx.data_ptr(): lvl.tables for lvl in levels
-                       if lvl.tables is not None}
+        tables = [getattr(lvl, "tables", lvl) for lvl in levels]
+        self.tables = {t.idx.data_ptr(): t for t in tables if t is not None}
         self.buffers = buffers if buffers is not None else {}
         self.fail_at = fail_at
         self.plans = plans if plans is not None else {}
@@ -237,16 +256,16 @@ class _Lib:
                     if isinstance(step, kernels.LevelRun) for c in step.column_runs
                     if c.rows.data_ptr() == address)
 
-    def fd_levels_gather_reduce(self, w, table, n, batch, storage, acc, compensated, stream,
-                                failed):
+    def fd_levels_gather_reduce(self, w, src, table, n, batch, storage, acc, compensated,
+                                stream, failed):
         width = len(kernels.RUN_FIELDS)
         rows = np.ctypeslib.as_array((ctypes.c_longlong * (width * n)).from_address(table))
         rows = rows.reshape(n, width).copy()
         self.calls.append((w, rows, n, batch, storage, acc, compensated, stream))
         for i, row in enumerate(rows.tolist()):
-            if i == self.fail_at:
+            if i == self.fail_at or (row[5] and src != w):
                 ctypes.c_int.from_address(failed).value = i
-                return 700
+                return 700 if i == self.fail_at else 1
             if w in self.buffers:
                 kw = dict(compensated=bool(compensated),
                           acc_dtype=None if acc == storage else F64)
@@ -254,8 +273,9 @@ class _Lib:
                     kernels.column_run_gather_reduce_plain(
                         self.buffers[w], self._column_run(row[0]), **kw)
                 else:
-                    kernels.level_gather_reduce_plain(self.buffers[w], self.tables[row[0]],
-                                                      **kw)
+                    kernels.level_gather_reduce_plain(
+                        self.buffers[w], self.tables[row[0]],
+                        src=None if src == w else self.buffers[src], **kw)
         return 0
 
 
@@ -285,6 +305,7 @@ def test_launcher_keeps_the_manifest_of_the_level_path(lowered, stand_in_lib, mo
     w = torch.zeros((ev.num_slots, 8), dtype=F64)
     # no level thin: a launch a level, the manifest of the level path
     run = _level_by_level(ev, w, monkeypatch)
+    run_tables = [lvl.tables for lvl in ev.levels if lvl.tables is not None]
     assert not run.column_runs and not run.table[:, 5].any()
     lib = stand_in_lib(_Lib())
     with profiling.capturing() as planned:
@@ -312,14 +333,14 @@ def test_launcher_keeps_the_manifest_of_the_level_path(lowered, stand_in_lib, mo
     launcher, col = kernels.levels_gather_reduce, kernels.column_run_gather_reduce
 
     def tally():
-        return (launcher.calls, launcher.launches, kernels.level_gather_reduce.launches,
-                col.launches, col.levels)
+        return (launcher.calls, kernels.level_gather_reduce.launches, col.launches, col.levels)
 
+    assert not hasattr(launcher, "launches")
     before = tally()
     kernels.levels_gather_reduce(w, run, 0)
     kernels.levels_gather_reduce(w, run, 0)
     n = len(run.paths)
-    assert tally() == tuple(b + d for b, d in zip(before, (2, 2 * n, 2 * n, 0, 0)))
+    assert tally() == tuple(b + d for b, d in zip(before, (2, 2 * n, 0, 0)))
     with profiling.capturing() as nested:
         with profiling.scope("outer"):
             kernels.levels_gather_reduce(w, run, 0)
@@ -338,10 +359,22 @@ def test_launcher_keeps_the_manifest_of_the_level_path(lowered, stand_in_lib, mo
     assert fused.per_kernel == {col: 1} and fused.levels_per_kernel == {col: n_levels}
     before = tally()
     kernels.levels_gather_reduce(w, stretch, 0)
-    assert tally() == tuple(b + d for b, d in zip(before, (1, 0, 0, 1, n_levels)))
+    assert tally() == tuple(b + d for b, d in zip(before, (1, 0, 1, n_levels)))
     before = tally()
     profiling.replayed(fused, 3)
-    assert tally() == tuple(b + d for b, d in zip(before, (0, 0, 0, 3, 3 * n_levels)))
+    assert tally() == tuple(b + d for b, d in zip(before, (0, 0, 3, 3 * n_levels)))
+
+    # a level launched alone (a run of one level with an empty path, as
+    # level_gather_reduce launches it) records the scopes open around it
+    alone = kernels.plan_run(w, [run_tables[0]], [""])
+    assert alone.paths == ("",) and alone.table[0].tolist() == run.table[0].tolist()
+    with profiling.capturing() as single:
+        with profiling.scope("gL00"), profiling.scope("fb2"):
+            kernels.levels_gather_reduce(w, alone, 0)
+        kernels.levels_gather_reduce(w, alone, 0)
+    assert [(x.symbol, x.path, x.kernel, x.levels) for x in single] == \
+        [("gather_reduce_kernel", "gL00/fb2", kernels.level_gather_reduce, 1),
+         ("gather_reduce_kernel", "", kernels.level_gather_reduce, 1)]
 
 
 @pytest.mark.parametrize("case", ["gamma4_o2", "gamma4_o2_csr", "synthetic", "gv_series_o4"])
@@ -409,6 +442,33 @@ def test_a_failed_launch_names_its_level(lowered, stand_in_lib, monkeypatch):
     with pytest.raises(RuntimeError, match=f"at level {stretch.paths[0]}: cudaError 700"):
         kernels.levels_gather_reduce(w, stretch, 0)
     assert kernels.levels_gather_reduce.calls == calls
+
+
+@pytest.mark.parametrize("mode", ["f64", "f64_kahan"])
+def test_a_one_level_run_reads_its_halo(lowered, stand_in_lib, mode):
+    """A run of one level launched with ``src``, as ``level_gather_reduce(w,
+    tables, src=halo)`` launches a graph-sharded level, equals
+    ``level_gather_reduce_plain(src=halo)`` bit for bit; a column run
+    refuses a ``src``."""
+    comp = mode == "f64_kahan"
+    ev = _planned(lowered("gamma4_o2"), compensated=comp)
+    t = [lvl.tables for lvl in ev.levels if lvl.tables is not None][-1]
+    rng = np.random.default_rng(11)
+    w = torch.as_tensor(rng.uniform(0.5, 1.5, (ev.num_slots, 9)))
+    halo = torch.as_tensor(rng.uniform(-1.5, 1.5, (ev.num_slots, 9)))
+    want, own = w.clone(), w.clone()
+    kernels.level_gather_reduce_plain(want, t, compensated=comp, src=halo)
+    kernels.level_gather_reduce_plain(own, t, compensated=comp)
+    assert not torch.equal(want, own)
+    run = kernels.plan_run(w, [t], [""], compensated=comp)
+    lib = stand_in_lib(_Lib([t], {w.data_ptr(): w, halo.data_ptr(): halo}))
+    kernels.levels_gather_reduce(w, run, 0, src=halo)
+    assert torch.equal(w, want) and len(lib.calls) == 1
+    stretch, = _runs(launch_plan(ev, w))
+    assert stretch.table[:, 5].all()
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        kernels.levels_gather_reduce(w, stretch, 0, src=halo)
+    assert torch.equal(w, want)
 
 
 def test_plan_run_checks_what_each_launch_checked(lowered):

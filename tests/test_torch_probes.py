@@ -495,7 +495,8 @@ def test_gather_scale_sum_equals_jax(gather_inputs, through_kernel):
     g = jnp.asarray(w).at[idx].get(mode="promise_in_bounds") * fac[:, None]
     ref = np.asarray(jnp.sum(g.reshape(8, GE // 8, GB), axis=0))
     if through_kernel:
-        got = pg.gather_scale_sum_kernel(x["w_ext"].clone(), GS, x["idx"], x["fac"])
+        got = pg.gather_scale_sum_kernel(x["w_ext"].clone(), GS,
+                                         pg.bucket_level(x["idx"], x["fac"], GS))
     else:
         got = pg.gather_scale_sum(x["w"], x["idx"], x["fac"])
     size = np.abs(w[idx] * fac[:, None]).reshape(8, GE // 8, GB).sum(axis=0)

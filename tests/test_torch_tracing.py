@@ -37,7 +37,7 @@ from test_torch_jit import _StandIn  # noqa: E402
 
 BETA, KF, LAM = 0.5, 1.919, 1.0
 BATCH = 8
-KERNELS = (leaf_eval.leaf_eval, kernels.level_gather_reduce, kernels.bucket_gather_reduce)
+KERNELS = (leaf_eval.leaf_eval, kernels.level_gather_reduce, kernels.column_run_gather_reduce)
 
 
 def _gamma4():
